@@ -1,0 +1,104 @@
+"""BDNet: I3D backbone + coarse pyramid + evidential head (PyTorch).
+
+Counterpart of `opental_tpu/models/bdnet.py:24-123`; reference
+AFSD/thumos14/BDNet.py:435-561. Input clips are (B, C, T, H, W) in
+[-1, 1] (the reference's layout); the out_dict has the JAX package's keys
+and layouts. Top-level names ('backbone._model', 'coarse_pyramid_detection')
+follow the reference state_dict.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from opental_torch.models.i3d import InceptionI3d
+from opental_torch.models.pyramid import CoarsePyramid
+
+
+def evidence_fn(logit: torch.Tensor, evidence: str = 'exp') -> torch.Tensor:
+    """Dirichlet evidence transform (thumos14/BDNet.py:544-550)."""
+    if evidence == 'relu':
+        return torch.relu(logit)
+    if evidence == 'exp':
+        return torch.exp(torch.clamp(logit, -10.0, 10.0))
+    if evidence == 'softplus':
+        return nn.functional.softplus(logit)
+    raise ValueError(evidence)
+
+
+def dirichlet_uncertainty(logit: torch.Tensor, evidence: str = 'exp'
+                          ) -> torch.Tensor:
+    """Vacuity u = K / sum(alpha), alpha = evidence + 1."""
+    k = logit.shape[-1]
+    alpha = evidence_fn(logit, evidence) + 1.0
+    return k / alpha.sum(dim=-1)
+
+
+def dirichlet_expected_prob(logit: torch.Tensor, evidence: str = 'exp'
+                            ) -> torch.Tensor:
+    """Expected class probability alpha / sum(alpha)."""
+    alpha = evidence_fn(logit, evidence) + 1.0
+    return alpha / alpha.sum(dim=-1, keepdim=True)
+
+
+class I3DBackbone(nn.Module):
+    """Holder that gives the backbone the reference's 'backbone._model'
+    key prefix."""
+
+    def __init__(self, **kw):
+        super().__init__()
+        self._model = InceptionI3d(**kw)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self._model(x)
+
+
+class BDNet(nn.Module):
+    """Boundary detection network for (open-set) TAL, THUMOS variant.
+
+    `crop_size` fixes the spatial kernel of the pyramid's input convs
+    (the JAX package derives it from the input at init). `dtype` is the
+    compute dtype of the convolutions (None = float32); parameters stay
+    float32.
+    """
+
+    def __init__(self, in_channels: int = 3, num_classes: int = 16,
+                 os_head: bool = False, use_edl: bool = False,
+                 evidence: str = 'exp', frame_num: int = 256,
+                 crop_size: int = 96, freeze_bn_affine: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.in_channels = in_channels
+        self.num_classes = num_classes
+        self.os_head = os_head
+        self.use_edl = use_edl
+        self.evidence = evidence
+        self.frame_num = frame_num
+        self.crop_size = crop_size
+        self.dtype = dtype
+        self.backbone = I3DBackbone(in_channels=in_channels,
+                                    bn_freeze_affine=freeze_bn_affine,
+                                    dtype=dtype)
+        self.coarse_pyramid_detection = CoarsePyramid(
+            num_classes=self.head_classes, frame_num=frame_num,
+            crop_size=crop_size, os_head=os_head, dtype=dtype)
+
+    @property
+    def head_classes(self) -> int:
+        # os_head drops the background channel (thumos14/BDNet.py:440)
+        return self.num_classes - 1 if self.os_head else self.num_classes
+
+    def forward(self, x: torch.Tensor) -> Dict[str, Any]:
+        return self.detect_from_features(self.backbone(x))
+
+    def detect_from_features(self, feat_dict: Dict[str, torch.Tensor]
+                             ) -> Dict[str, Any]:
+        out = self.coarse_pyramid_detection(feat_dict)
+        if self.use_edl:
+            out['unct'] = dirichlet_uncertainty(out['conf'], self.evidence)
+            out['prop_unct'] = dirichlet_uncertainty(out['prop_conf'],
+                                                     self.evidence)
+        return out

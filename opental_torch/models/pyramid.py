@@ -1,0 +1,239 @@
+"""Coarse-to-fine temporal detection pyramid (THUMOS14 variant).
+
+Counterpart of `opental_tpu/models/pyramid.py`; reference
+AFSD/thumos14/BDNet.py:64-432. Convolutions run on (B, C, t); the
+boundary max pool keeps the JAX op's (B, T, C) contract, so features are
+transposed at the op. The returned out_dict has the JAX package's (and
+the reference's) layout: (B, P, ...) with P = 126 priors at 256 frames.
+Module names follow the reference state_dict
+('pyramids.0.0.conv3d.weight', 'loc_tower.1.0.conv1d.weight',
+'loc_proposal_branch.lr_conv.1.weight', 'loc_heads.3.scale', ...).
+The SSL, RPL and transformer branches are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from opental_torch.models.layers import (ConvGNReLU1D, GroupNorm32,
+                                         ScaleExp, Unit1D, Unit3D,
+                                         interpolate_nearest_1d)
+from opental_torch.ops.boundary_pool import boundary_max_pool
+
+LAYER_NUM = 6
+CONV_CHANNELS = 512
+
+
+def level_sizes(frame_num: int, layer_num: int = LAYER_NUM) -> List[int]:
+    """Temporal length of each pyramid level: frame_num / 4, halved."""
+    feat_t = frame_num // 4
+    return [feat_t // (1 << i) for i in range(layer_num)]
+
+
+def make_priors(frame_num: int, layer_num: int = LAYER_NUM) -> np.ndarray:
+    """Per-level center priors (c + 0.5) / t, concatenated (P, 1)."""
+    return np.concatenate([(np.arange(t, dtype=np.float32) + 0.5) / t
+                           for t in level_sizes(frame_num, layer_num)]
+                          )[:, None]
+
+
+def backbone_spatial(crop_size: int) -> Tuple[int, int]:
+    """Spatial extent of Mixed_4f and Mixed_5c for a square crop: every
+    stride-2 SAME op maps n to ceil(n / 2) (stem, 2a, 3a, 4a; then 5a)."""
+    n = crop_size
+    for _ in range(4):
+        n = -(-n // 2)
+    return n, -(-n // 2)
+
+
+def expand_boundary_segments(left: torch.Tensor, right: torch.Tensor,
+                             plus_one: bool = False) -> torch.Tensor:
+    """[l-out, l+in, r-in, r+out] with in = max(w/4, 1), out =
+    max(w/10, 1), rounded half to even (thumos14/BDNet.py:355-384);
+    left/right (..., 1)."""
+    plen = right - left
+    if plus_one:
+        plen = plen + 1.0
+    in_plen = torch.clamp(plen / 4.0, min=1.0)
+    out_plen = torch.clamp(plen / 10.0, min=1.0)
+    return torch.cat([torch.round(left - out_plen),
+                      torch.round(left + in_plen),
+                      torch.round(right - in_plen),
+                      torch.round(right + out_plen)], dim=-1)
+
+
+def proposal_segments(loc: torch.Tensor, frame_num: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pooling windows of one level from its coarse offsets loc (B, t, 2):
+    (segments in level units, frame_segments in frame units), each
+    (B, t, 4) float32."""
+    t = loc.shape[1]
+    prior_center = ((torch.arange(t, dtype=torch.float32,
+                                  device=loc.device) + 0.5) / t
+                    )[None, :, None]
+    seg_scaled = loc / frame_num * t
+    new_priors = torch.round(prior_center * t - 0.5)
+    segments = expand_boundary_segments(new_priors - seg_scaled[..., :1],
+                                        new_priors + seg_scaled[..., 1:])
+    decoded_l = prior_center * frame_num - loc[..., :1]
+    decoded_r = prior_center * frame_num + loc[..., 1:]
+    frame_segments = expand_boundary_segments(decoded_l, decoded_r,
+                                              plus_one=True)
+    return segments.contiguous(), frame_segments.contiguous()
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(1, 2)
+
+
+class ProposalBranch(nn.Module):
+    """Boundary-pooled proposal refinement (thumos14/BDNet.py:64-113)."""
+
+    def __init__(self, in_channels: int = CONV_CHANNELS,
+                 proposal_channels: int = 512,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        pc = proposal_channels
+        self.cur_point_conv = ConvGNReLU1D(in_channels, pc, 1, dtype=dtype)
+        self.lr_conv = ConvGNReLU1D(in_channels, pc * 2, 1, dtype=dtype)
+        self.roi_conv = ConvGNReLU1D(CONV_CHANNELS, pc, 1, dtype=dtype)
+        self.proposal_conv = ConvGNReLU1D(pc * 4, pc, 1, dtype=dtype)
+
+    def forward(self, feature: torch.Tensor, frame_level_tc: torch.Tensor,
+                segments: torch.Tensor, frame_segments: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """feature (B, C, t); frame_level_tc (B, T, 512) channels-last.
+        Returns (proposal feature (B, 512, t), lr feature (B, 1024, t))."""
+        fm_short = self.cur_point_conv(feature)
+        feature = self.lr_conv(feature)
+        prop = boundary_max_pool(_channels_last(feature).contiguous(),
+                                 segments)
+        roi = boundary_max_pool(frame_level_tc, frame_segments)
+        roi = self.roi_conv(_channels_last(roi))
+        prop = torch.cat([roi, _channels_last(prop), fm_short], dim=1)
+        return self.proposal_conv(prop), feature
+
+
+def _tower(depth: int = 2, dtype=None) -> nn.Sequential:
+    """k3 conv-GN-relu blocks (loc/conf towers, thumos14/BDNet.py:170-203)."""
+    return nn.Sequential(*[ConvGNReLU1D(CONV_CHANNELS, CONV_CHANNELS, 3,
+                                        dtype=dtype) for _ in range(depth)])
+
+
+class CoarsePyramid(nn.Module):
+    """6-level temporal FPN with coarse heads and proposal refinement."""
+
+    def __init__(self, num_classes: int, frame_num: int = 256,
+                 crop_size: int = 96, os_head: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        oc = CONV_CHANNELS
+        self.frame_num = frame_num
+        self.os_head = os_head
+        s4f, s5c = backbone_spatial(crop_size)
+        # spatial-valid kernels spanning the full spatial extent collapse
+        # H x W to 1 x 1 ((6, 6) / (3, 3) at crop 96)
+        in_convs = [
+            nn.Sequential(Unit3D(cin, oc, (1, s, s), padding='spatial_valid',
+                                 use_bias=True, use_batch_norm=False,
+                                 activation=False, dtype=dtype),
+                          GroupNorm32(oc), nn.ReLU())
+            for cin, s in ((832, s4f), (1024, s5c))]
+        self.pyramids = nn.ModuleList(
+            in_convs + [ConvGNReLU1D(oc, oc, 3, stride=2, dtype=dtype)
+                        for _ in range(2, LAYER_NUM)])
+        # frame-level feature stack: one flat Sequential as the reference
+        # (deconv.{0,3,6} convs, deconv.{1,4,7} GroupNorms)
+        self.deconv = nn.Sequential(*[
+            m for k in (3, 3, 1)
+            for m in ConvGNReLU1D(oc, oc, k, dtype=dtype)])
+        self.loc_tower = _tower(dtype=dtype)
+        self.conf_tower = _tower(dtype=dtype)
+        self.loc_head = Unit1D(oc, 2, 3, activation=False, dtype=dtype)
+        self.conf_head = Unit1D(oc, num_classes, 3, activation=False,
+                                dtype=dtype)
+        if os_head:
+            self.actionness_head = Unit1D(oc, 1, 3, activation=False,
+                                          dtype=dtype)
+            self.prop_actionness_head = Unit1D(oc, 1, 1, activation=False,
+                                               dtype=dtype)
+        self.loc_proposal_branch = ProposalBranch(oc, 512, dtype=dtype)
+        self.conf_proposal_branch = ProposalBranch(oc, 512, dtype=dtype)
+        self.prop_loc_head = Unit1D(oc, 2, 1, activation=False, dtype=dtype)
+        self.prop_conf_head = Unit1D(oc, num_classes, 1, activation=False,
+                                     dtype=dtype)
+        self.center_head = Unit1D(oc, 1, 3, activation=False, dtype=dtype)
+        self.loc_heads = nn.ModuleList([ScaleExp()
+                                        for _ in range(LAYER_NUM)])
+        self.register_buffer('priors',
+                             torch.from_numpy(make_priors(frame_num)),
+                             persistent=False)
+
+    def forward(self, feat_dict: Dict[str, torch.Tensor]
+                ) -> Dict[str, Any]:
+        x1 = feat_dict['Mixed_4f']            # (B, 832, T/4, h, w)
+        x2 = feat_dict['Mixed_5c']            # (B, 1024, T/8, h', w')
+        lvl0 = self.pyramids[0](x1).flatten(2)    # (B, 512, T/4)
+        lvl1 = self.pyramids[1](x2).flatten(2)    # (B, 512, T/8)
+        lvl0 = lvl0 + interpolate_nearest_1d(lvl1, lvl0.shape[-1])
+        feats = [lvl0, lvl1]
+        x = lvl1
+        for i in range(2, LAYER_NUM):
+            x = self.pyramids[i](x)
+            feats.append(x)
+
+        frame_level = self.deconv(interpolate_nearest_1d(lvl0,
+                                                         self.frame_num))
+        frame_tc = _channels_last(frame_level).contiguous()  # (B, T, 512)
+        half = CONV_CHANNELS // 2
+        out: Dict[str, Any] = {'start': frame_tc[..., :half],
+                               'end': frame_tc[..., half:]}
+
+        locs, confs, acts, centers = [], [], [], []
+        prop_locs, prop_confs, prop_acts = [], [], []
+        for i, feat in enumerate(feats):
+            loc_feat = self.loc_tower(feat)
+            conf_feat = self.conf_tower(feat)
+            loc_out = _channels_last(
+                self.loc_heads[i](self.loc_head(loc_feat)))   # (B, t, 2)
+            locs.append(loc_out)
+            confs.append(_channels_last(self.conf_head(conf_feat)))
+            if self.os_head:
+                acts.append(_channels_last(self.actionness_head(conf_feat)))
+
+            segments, frame_segments = proposal_segments(
+                loc_out.detach(), self.frame_num)
+            loc_prop, loc_lr = self.loc_proposal_branch(
+                loc_feat, frame_tc, segments, frame_segments)
+            conf_prop, conf_lr = self.conf_proposal_branch(
+                conf_feat, frame_tc, segments, frame_segments)
+            if i == 0:
+                nd = loc_lr.shape[1] // 2
+                loc_lr, conf_lr = _channels_last(loc_lr), \
+                    _channels_last(conf_lr)
+                out['start_loc_prop'] = loc_lr[..., :nd]
+                out['end_loc_prop'] = loc_lr[..., nd:]
+                out['start_conf_prop'] = conf_lr[..., :nd]
+                out['end_conf_prop'] = conf_lr[..., nd:]
+            prop_locs.append(_channels_last(self.prop_loc_head(loc_prop)))
+            prop_confs.append(_channels_last(self.prop_conf_head(conf_prop)))
+            if self.os_head:
+                prop_acts.append(_channels_last(
+                    self.prop_actionness_head(conf_prop)))
+            centers.append(_channels_last(self.center_head(loc_prop)))
+
+        def cat(xs):
+            return torch.cat(xs, dim=1)
+
+        out.update({
+            'loc': cat(locs), 'conf': cat(confs),
+            'prop_loc': cat(prop_locs), 'prop_conf': cat(prop_confs),
+            'center': cat(centers), 'priors': self.priors,
+            'act': cat(acts) if self.os_head else None,
+            'prop_act': cat(prop_acts) if self.os_head else None,
+        })
+        return out

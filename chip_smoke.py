@@ -5,17 +5,29 @@
 
 Phases (any failure ends the run with a non-zero exit):
   1. card, versions; build the CUDA kernels from csrc/ (nvcc, in parallel)
-  2. every hand kernel vs its plain PyTorch version on the card, at the
-     inputs the main path gives it (captured from a full-width forward
-     at W=32) and on adversarial inputs, in float32 and bfloat16; times
-     of kernel, plain version and bound per shape
-  3. the full-width OpenTAL-final BDNet (256 x 96 x 96, seeded weights) in
-     float32 with TF32 off: card vs CPU at W=1, kernel path vs plain path
-     at W=32, 24 kernel launches per forward
-  4. the main path end to end: synthetic uint8 videos through
+  2. B1, the pool forward, vs its plain PyTorch version on the card, at
+     the inputs inference gives it (captured from a full-width forward at
+     W=32) and on adversarial inputs, in float32 and bfloat16; times of
+     kernel, plain version and bound per shape
+  3. B2, the pool backward, vs its plain version, on the (x, segments, g)
+     of the 27 backward calls of one full-width train step and on tied
+     inputs, in float32 and bfloat16; times of kernel, plain version,
+     scatter_add_ and bound per call
+  4. one full-width bs=1 train step of the OpenTAL-final model in
+     float32, TF32 off: the kernel path vs the plain path (31 forward and
+     27 backward launches), and the card vs the CPU
+  5. the full-width BDNet (256 x 96 x 96, seeded weights) in float32 with
+     TF32 off: card vs CPU at W=1, kernel path vs plain path at W=32, 24
+     kernel launches per forward
+  6. inference end to end: synthetic uint8 videos through
      opental_torch.tools.test.run_test at the default bf16, to a
      detection JSON; launch counts are read from this run only
-  5. forward + decode windows/s at W=32 and W=128 (bf16), soft-NMS time
+  7. training end to end: opental_torch.train.loop.train and the
+     tools.train CLI at full width on synthetic videos (2 epochs, a
+     checkpoint, a resume), then run_test on the result; launch counts
+     are read from this run only
+  8. train step time at bs=1 and bs=8 (f32), peak memory, a profile
+  9. forward + decode windows/s at W=32 and W=128 (bf16), soft-NMS time
      per video
 Then a `kernels` JSON line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Weights and data are random,
@@ -42,10 +54,20 @@ from opental_torch import factory  # noqa: E402
 from opental_torch.config import load_config  # noqa: E402
 from opental_torch.infer.pipeline import (InferencePipeline,  # noqa: E402
                                           window_offsets)
+from opental_torch.losses.edl import EDLState  # noqa: E402
+from opental_torch.models import bdnet as bdnet_mod  # noqa: E402
 from opental_torch.models import pyramid  # noqa: E402
 from opental_torch.models.bdnet import BDNet  # noqa: E402
 from opental_torch.ops import _build, boundary_pool, boundary_pool_cuda  # noqa: E402
+from opental_torch.tools import train as train_cli  # noqa: E402
 from opental_torch.tools.test import run_test  # noqa: E402
+from opental_torch.train import checkpoint  # noqa: E402
+from opental_torch.train.loop import SAVE_AFTER_EPOCH  # noqa: E402
+from opental_torch.train.loop import train as train_loop  # noqa: E402
+from opental_torch.train.step import (TrainState, compute_losses,  # noqa: E402
+                                      device_ingest, global_norm,
+                                      make_optimizer, train_step)
+from opental_torch.utils.synthetic import make_synthetic_dataset  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FRAMES, CROP, CLASSES = 256, 96, 16
@@ -189,7 +211,7 @@ def phase_kernel_vs_plain(calls):
             xd = x.to(dtype).contiguous()
             for segs in (seg, adversarial_segments(
                     x.shape[0], seg.shape[1], x.shape[1], i)):
-                got = boundary_pool_cuda.boundary_max_pool_fwd(xd, segs)
+                got, _ = boundary_pool_cuda.boundary_max_pool_fwd(xd, segs)
                 with boundary_pool.force_plain():
                     want = boundary_pool.boundary_max_pool(xd, segs)
                 torch.cuda.synchronize()
@@ -235,7 +257,7 @@ def phase_kernel_vs_plain(calls):
 
 
 def phase_full_width(state_dict):
-    log('== phase 3: full-width BDNet f32, TF32 off')
+    log('== phase 5: full-width BDNet f32, TF32 off')
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -318,7 +340,7 @@ def write_dataset(root: str, seed: int = 0):
 
 
 def phase_end_to_end(state_dict, root):
-    log('== phase 4: main path end to end (tools.test.run_test, bf16)')
+    log('== phase 6: inference end to end (tools.test.run_test, bf16)')
     lengths = write_dataset(root)
     ckpt = os.path.join(root, 'checkpoint-1.ckpt')
     torch.save(state_dict, ckpt)
@@ -334,13 +356,14 @@ def phase_end_to_end(state_dict, root):
                     for t in lengths.values())
     n_forwards = sum(math.ceil(len(window_offsets(t, FRAMES, 128)) / 128)
                      for t in lengths.values())
-    boundary_pool_cuda.LAUNCHES = 0
+    boundary_pool_cuda.LAUNCHES = boundary_pool_cuda.BWD_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     path = run_test(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = boundary_pool_cuda.LAUNCHES
+    assert boundary_pool_cuda.BWD_LAUNCHES == 0, 'backward in inference'
     with open(path) as f:
         payload = json.load(f)
     assert set(payload) >= {'version', 'results'}, set(payload)
@@ -373,10 +396,13 @@ def phase_end_to_end(state_dict, root):
     return launches, lengths
 
 
-def profile_device(fn, label: str, top: int = 8) -> None:
+def profile_device(fn, label: str, top: int = 8) -> float:
     """Kernel time by name over one fn() (torch.profiler), the device's
     busy share of that call's wall time (profiling on), and the same
-    device time by the PyTorch op (and input shapes) that launched it."""
+    device time by the PyTorch op (and input shapes) that launched it.
+    Returns the busy ms. Ranges of user annotations (the optimizer's
+    `Optimizer.step#...`) overlap the kernels inside them and are left
+    out of the sums."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -389,11 +415,12 @@ def profile_device(fn, label: str, top: int = 8) -> None:
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not getattr(e, 'is_user_annotation', False)]
     busy = sum(r[0] for r in rows)
     if not rows:
-        log(f'profile {label}: the profiler recorded no device time')
-        return
+        raise RuntimeError(f'profile {label}: the profiler recorded no '
+                           'device time')
     log(f'profile {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} '
         f'ms ({busy / wall_ms:.1%}), {sum(r[1] for r in rows)} kernels')
     for ms, count, key in sorted(rows, reverse=True)[:top]:
@@ -410,10 +437,11 @@ def profile_device(fn, label: str, top: int = 8) -> None:
     for ms, count, key, shapes in sorted(ops, reverse=True)[:top]:
         log(f'  {ms:9.3f} ms {ms / busy:6.1%} x{count:<5d} {key} '
             f'{shapes[:100]}')
+    return busy
 
 
 def phase_throughput(state_dict, root, lengths):
-    log(f'== phase 5: forward + decode throughput (bf16), soft-NMS time, '
+    log(f'== phase 9: forward + decode throughput (bf16), soft-NMS time, '
         f'on {card_line()}')
     model = build_model(state_dict, torch.bfloat16, 'cuda')
     pipe = InferencePipeline(model, clip_length=FRAMES, stride=128,
@@ -447,6 +475,358 @@ def phase_throughput(state_dict, root, lengths):
                    f'post-process {name}')
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_STEP_FWD, TRAIN_STEP_BWD = 31, 27    # pool launches per train step
+
+
+def train_model(cfg, frame: int, crop: int, device, seed: int = 0):
+    """The config's BDNet in f32 with the seeded training init."""
+    m = factory.init_train_weights(factory.build_model(
+        cfg, frame_num=frame, crop_size=crop, dtype=torch.float32),
+        seed=seed)
+    return m.to(device)
+
+
+def train_batch(b: int, frame: int, crop: int, seed: int, device):
+    """A training batch as the dataset gives it with uint8 ingest: uint8
+    clips (made on `device` from a seed), padded GT, heatmaps and the SSL
+    inputs."""
+    rng = np.random.RandomState(seed)
+    n_max = 4
+    truths = np.zeros((b, n_max, 2), np.float32)
+    labels = np.zeros((b, n_max), np.int64)
+    gt_mask = np.zeros((b, n_max), bool)
+    for i in range(b):
+        k = rng.randint(1, n_max)
+        s = rng.uniform(0, 0.7, k)
+        truths[i, :k, 0] = s
+        truths[i, :k, 1] = np.clip(s + rng.uniform(0.05, 0.3, k), 0, 1)
+        labels[i, :k] = rng.randint(1, CLASSES, k)
+        gt_mask[i, :k] = True
+    props = np.array([[20., 80.], [120., 200.], [90., 110.]],
+                     np.float32) * (frame / 256)
+    host = {'truths': truths, 'labels': labels, 'gt_mask': gt_mask,
+            'scores': (rng.rand(b, 2, frame) > 0.9).astype(np.float32),
+            'ssl_props': np.tile(props[None], (b, 1, 1)),
+            'ssl_flags': np.ones((b,), np.float32)}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    g = torch.Generator(device=device).manual_seed(seed)
+    for k in ('clips', 'ssl_clips'):
+        batch[k] = torch.randint(0, 256, (b, frame, crop, crop, 3),
+                                 generator=g, device=device,
+                                 dtype=torch.uint8)
+    return batch
+
+
+def loss_and_grads(model, cfg, batch, epoch: int = 11):
+    """Loss terms and parameter gradients of one train step (no update)."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    edl = EDLState.create(factory.build_loss_config(cfg).edl, batch[
+        'truths'].device)
+    cost, terms, _ = compute_losses(model, factory.build_loss_config(cfg),
+                                    factory.build_loss_weights(cfg),
+                                    device_ingest(batch), edl, epoch)
+    cost.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return {k: v.detach() for k, v in terms.items()}, grads
+
+
+def capture_train_calls(model, cfg, batch):
+    """(x, segments, g) of every boundary-pool call of one full train step
+    (g None where the output gets no gradient), in call order."""
+    calls = []
+    real = boundary_pool.boundary_max_pool
+
+    def recording(x, seg):
+        out = real(x, seg)
+        rec = {'x': x.detach().clone(), 'seg': seg.clone(), 'g': None}
+        calls.append(rec)
+        if out.requires_grad:
+            def hook(g, rec=rec):
+                # the kernel's backward takes g as .contiguous() gives it
+                rec['g'] = g.detach().clone(
+                    memory_format=torch.contiguous_format)
+            out.register_hook(hook)
+        return out
+
+    pyramid.boundary_max_pool = bdnet_mod.boundary_max_pool = recording
+    try:
+        loss_and_grads(model, cfg, batch)
+    finally:
+        pyramid.boundary_max_pool = bdnet_mod.boundary_max_pool = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def quantized_case(b, t_len, c, k, seed):
+    """x on 5 levels (ties everywhere), adversarial segments, g on a
+    1/64 grid (float32 sums of it are exact in any order)."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randint(-2, 3, (b, t_len, c), generator=gen,
+                      device='cuda').float()
+    g = torch.randint(-256, 257, (b, k, c), generator=gen,
+                      device='cuda').float() / 64
+    return x, adversarial_segments(b, k, t_len, seed), g
+
+
+def bwd_bound_ms(g: torch.Tensor, t_len: int) -> float:
+    """Least time of one backward: g and the int32 argmax read once, dx
+    written once, over the memory rate."""
+    b, k, c = g.shape
+    nbytes = g.numel() * (g.element_size() + 4) + b * t_len * c * \
+        g.element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_bwd_kernel_vs_plain(cfg):
+    log('== phase 3: boundary_max_pool_bwd vs plain version on the card')
+    model = train_model(cfg, FRAMES, CROP, 'cuda')
+    calls = capture_train_calls(model, cfg, train_batch(1, FRAMES, CROP, 7,
+                                                        'cuda'))
+    del model
+    with_g = [c for c in calls if c['g'] is not None]
+    log(f'one full-width bs=1 train step: {len(calls)} pool calls, '
+        f'{len(with_g)} with a gradient')
+    assert (len(calls), len(with_g)) == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), \
+        (len(calls), len(with_g))
+    cases = [(c['x'], c['seg'], c['g'], 'captured') for c in with_g]
+    for i, c in enumerate(with_g):
+        (b, t_len, ch), k = c['x'].shape, c['seg'].shape[1]
+        cases.append(quantized_case(b, t_len, ch, k, 100 + i) + ('ties',))
+    max_err = 0.0
+    for i, (x, seg, g, kind) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, gd = x.to(dtype).contiguous(), g.to(dtype).contiguous()
+            out, am = boundary_pool_cuda.boundary_max_pool_fwd(
+                xd, seg, with_argmax=True)
+            dx = boundary_pool_cuda.boundary_max_pool_bwd(am, gd,
+                                                          x.shape[1])
+            want_out, want_am = boundary_pool._plain_forward(xd, seg, True)
+            want_dx = boundary_pool.plain_backward(want_am, gd, x.shape[1])
+            torch.cuda.synchronize()
+            if not torch.equal(out, want_out):
+                raise AssertionError(f'fwd with argmax != plain: {i} {kind}')
+            if not torch.equal(am.long(), want_am):
+                raise AssertionError(f'argmax != plain argmax: call {i} '
+                                     f'{kind} {dtype}')
+            err = (dx.float() - want_dx.float()).abs().max().item()
+            max_err = max(max_err, err)
+            torch.testing.assert_close(
+                dx, want_dx, rtol=1e-6, atol=1e-6,
+                msg=lambda m: f'dx call {i} {kind} {dtype}: {m}')
+    log(f'argmax == plain exactly and dx within rtol 1e-6 / atol 1e-6 on '
+        f'{len(with_g)} captured + {len(with_g)} tied calls x (f32, bf16); '
+        f'max_abs_err {max_err}')
+
+    rows = []
+    tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0,
+           'fwd_train_ms': 0.0}
+    for c in with_g:
+        x, seg, g = c['x'], c['seg'], c['g']
+        t_len = x.shape[1]
+        _, am = boundary_pool_cuda.boundary_max_pool_fwd(x, seg, True)
+        am64 = am.long()
+
+        def kernel():
+            boundary_pool_cuda.boundary_max_pool_bwd(am, g, t_len)
+
+        def plain():
+            boundary_pool.plain_backward(am64, g, t_len)
+
+        def library():
+            torch.zeros((g.shape[0], t_len, g.shape[2]), device='cuda'
+                        ).scatter_add_(1, am64, g)
+
+        def fwd_train():
+            boundary_pool_cuda.boundary_max_pool_fwd(x, seg, True)
+
+        # the plain version launches one scatter per k (up to 65 kernels a
+        # call): few reps, so that the queue of launches stays within the
+        # sleep kernel's hold on the stream
+        r = {'ms': device_ms(kernel, reps=50),
+             'plain_ms': device_ms(plain, reps=4),
+             'library_ms': device_ms(library, reps=50),
+             'bound_ms': bwd_bound_ms(g, t_len),
+             'fwd_train_ms': device_ms(fwd_train, reps=50)}
+        for key in tot:
+            tot[key] += r[key]
+        rows.append((tuple(x.shape), seg.shape[1], r))
+    log('B2 device times per call (ms): kernel, plain, scatter_add_, bound '
+        '(g + argmax + dx bytes / 3.35 TB/s); B1 forward with argmax')
+    log('x(B,T,C)           K    kernel     plain   scatter   bound   '
+        'bound/kernel  fwd+argmax')
+    for shape, k, r in rows:
+        log(f'{str(shape):18s} {k:3d}  {r["ms"]:.5f}  {r["plain_ms"]:.5f}  '
+            f'{r["library_ms"]:.5f}  {r["bound_ms"]:.6f}  '
+            f'{r["bound_ms"] / r["ms"]:.3f}  {r["fwd_train_ms"]:.5f}')
+    log(f'one train step ({TRAIN_STEP_BWD} backward calls, bs=1, f32): '
+        f'kernel {tot["ms"]} ms, plain {tot["plain_ms"]} ms, scatter_add_ '
+        f'{tot["library_ms"]} ms, bound {tot["bound_ms"]} ms; B1 forward '
+        f'with argmax on the same {TRAIN_STEP_BWD} calls '
+        f'{tot["fwd_train_ms"]} ms')
+    del calls, cases, with_g
+    torch.cuda.empty_cache()
+    return max_err, tot
+
+
+def phase_train_paths(cfg):
+    log('== phase 4: one full-width bs=1 train step, TF32 off: kernel '
+        'path vs plain path, card vs CPU')
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = train_model(cfg, FRAMES, CROP, 'cuda')
+        batch = train_batch(1, FRAMES, CROP, 3, 'cuda')
+        f0, b0 = boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES
+        terms_k, grads_k = loss_and_grads(model, cfg, batch)
+        torch.cuda.synchronize()
+        fwd = boundary_pool_cuda.LAUNCHES - f0
+        bwd = boundary_pool_cuda.BWD_LAUNCHES - b0
+        with boundary_pool.force_plain():
+            terms_p, grads_p = loss_and_grads(model, cfg, batch)
+        torch.cuda.synchronize()
+        assert (fwd, bwd) == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), (fwd, bwd)
+        for k in terms_k:
+            if not torch.equal(terms_k[k], terms_p[k]):
+                raise AssertionError(f'{k}: kernel path {terms_k[k]} != '
+                                     f'plain path {terms_p[k]}')
+        assert set(grads_k) == set(grads_p)
+        worst = 0.0
+        for n, gk in grads_k.items():
+            gp = grads_p[n]
+            scale = gp.abs().max().item()
+            torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-5 * scale,
+                                       msg=lambda m: f'grad {n}: {m}')
+            if scale > 0:
+                worst = max(worst, (gk - gp).abs().max().item() / scale)
+        log(f'kernel path: {fwd} B1 + {bwd} B2 launches per step; losses '
+            f'equal the plain path\'s bit for bit; every gradient within '
+            f'rtol 1e-5 (+ 1e-5 of its max); worst |diff| / max {worst:.3g}; '
+            f'cost {terms_k["cost"].item():.6f}')
+        del model, grads_p
+        torch.cuda.empty_cache()
+
+        # the same full-width step on the CPU (its time is printed: past
+        # 60 s this check would move to a smaller size)
+        cpu_model = train_model(cfg, FRAMES, CROP, 'cpu')
+        t0 = time.perf_counter()
+        terms_c, grads_c = loss_and_grads(
+            cpu_model, cfg, {k: v.cpu() for k, v in batch.items()})
+        cpu_s = time.perf_counter() - t0
+        for k in terms_c:
+            torch.testing.assert_close(terms_k[k].cpu(), terms_c[k],
+                                       rtol=1e-3, atol=2e-3,
+                                       msg=lambda m: f'{k}: {m}')
+        gn_d = global_norm(grads_k.values()).item()
+        gn_c = global_norm(grads_c.values()).item()
+        torch.testing.assert_close(torch.tensor(gn_d), torch.tensor(gn_c),
+                                   rtol=1e-3, atol=2e-3)
+        log(f'card == CPU on every loss term and the global grad norm '
+            f'(rtol 1e-3, atol 2e-3) at full width, bs=1: cost '
+            f'{terms_k["cost"].item():.6f} vs {terms_c["cost"].item():.6f}, '
+            f'grad norm {gn_d:.6f} vs {gn_c:.6f}; CPU step {cpu_s:.1f} s')
+        del batch, grads_k, cpu_model, grads_c
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        torch.cuda.empty_cache()
+
+
+def phase_train_end_to_end(root):
+    log('== phase 7: training end to end (tools.train, full width, '
+        'synthetic videos): 2 epochs, checkpoint, resume, run_test')
+    data = os.path.join(root, 'train_synth')
+    cfg_path = make_synthetic_dataset(data, n_train=3, n_test=1,
+                                      clip_length=FRAMES, crop_size=CROP,
+                                      spatial=112, seed=0)
+    cfg = load_config(cfg_path, overrides={'training.max_epoch': 2})
+    boundary_pool_cuda.LAUNCHES = boundary_pool_cuda.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train_loop(cfg, max_steps_per_epoch=2)
+    ckdir = cfg.training.checkpoint_path
+    # the loop saves from epoch 11 on: this state is saved as epoch 10 and
+    # the CLI resumes it for epoch 11, which saves itself
+    checkpoint.save(ckdir, SAVE_AFTER_EPOCH, state)
+    train_cli.main([cfg_path, '--max_steps_per_epoch', '2', '--resume',
+                    '-1', '--max_epoch', str(SAVE_AFTER_EPOCH + 1)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES
+    assert checkpoint.latest_epoch(ckdir) == SAVE_AFTER_EPOCH + 1
+    payload = torch.load(checkpoint.epoch_path(ckdir, SAVE_AFTER_EPOCH + 1),
+                         map_location='cpu', weights_only=True)
+    steps = payload['step']
+    assert state.step >= 2 and steps > state.step, (state.step, steps)
+    with open(os.path.join(ckdir, 'metrics.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    assert [r['step'] for r in recs] == list(range(1, steps + 1))
+    for r in recs:
+        assert all(math.isfinite(v) for v in r.values()), r
+    assert (fwd, bwd) == (TRAIN_STEP_FWD * steps, TRAIN_STEP_BWD * steps), \
+        (fwd, bwd)
+    log(f'{steps} steps over epochs 1, 2 and (resumed) 11 in {wall:.1f} s '
+        f'(data and checkpoints included); costs '
+        f'{[round(r["cost"], 4) for r in recs]}; launches in this run: '
+        f'B1 {fwd}, B2 {bwd} ({TRAIN_STEP_FWD} and {TRAIN_STEP_BWD} per '
+        f'step)')
+    test_cfg = load_config(cfg_path)
+    path = run_test(test_cfg)
+    with open(path) as f:
+        results = json.load(f)['results']
+    n = sum(len(v) for v in results.values())
+    assert len(results) == 1 and n > 0, (len(results), n)
+    for props in results.values():
+        for p in props:
+            assert all(math.isfinite(v) for v in
+                       [p['score'], p['uncertainty'], *p['segment']]), p
+    log(f'run_test on the trained checkpoint: {n} proposals, finite')
+    return fwd, bwd
+
+
+def phase_train_speed(cfg):
+    log(f'== phase 8: train step time (f32, full width) on {card_line()}')
+    loss_cfg = factory.build_loss_config(cfg)
+    weights = factory.build_loss_weights(cfg)
+    model = train_model(cfg, FRAMES, CROP, 'cuda')
+    state = TrainState(model=model, optimizer=make_optimizer(model, 1e-5,
+                                                             1e-3),
+                       edl_state=EDLState.create(loss_cfg.edl, 'cuda'))
+    out = {}
+    for bs, reps in ((1, 6), (8, 3)):
+        batch = train_batch(bs, FRAMES, CROP, 5, 'cuda')
+
+        def step():
+            train_step(state, loss_cfg, weights, batch, 11)
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        out[bs] = (ms, mem)
+        log(f'bs={bs}: {ms:.1f} ms per step, {bs / ms * 1e3:.2f} clips/s, '
+            f'peak memory {mem:.2f} GiB')
+        busy = profile_device(step, f'train step bs={bs}', top=10)
+        log(f'bs={bs}: device busy {busy:.2f} ms of the {ms:.1f} ms step '
+            f'without the profiler ({busy / ms:.1%})')
+        del batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false: this run '
@@ -475,24 +855,36 @@ def main() -> int:
     max_err, tot = phase_kernel_vs_plain(calls)
     del calls
     torch.cuda.empty_cache()
+    bwd_err, bwd_tot = phase_bwd_kernel_vs_plain(cfg)
+    phase_train_paths(cfg)
 
     phase_full_width(state_dict)
     root = tempfile.mkdtemp(prefix='chip_smoke_')
     try:
         launches, lengths = phase_end_to_end(state_dict, root)
+        train_fwd, train_bwd = phase_train_end_to_end(root)
+        phase_train_speed(cfg)
         phase_throughput(state_dict, root, lengths)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    log(f'boundary_max_pool_fwd launches: {launches} in the inference run, '
+        f'{train_fwd} in the training run')
     log(f'total {time.perf_counter() - t_start:.1f} s')
+    source = 'opental_torch/csrc/boundary_pool.cu'
     print(json.dumps({'kernels': [{
-        'name': 'boundary_max_pool_fwd', 'route': 'cuda',
-        'source': 'opental_torch/csrc/boundary_pool.cu',
+        'name': 'boundary_max_pool_fwd', 'route': 'cuda', 'source': source,
         'replaces': 'opental_tpu/ops/boundary_pool_pallas.py:38',
-        'launches': launches, 'max_abs_err': max_err,
+        'launches': launches + train_fwd, 'max_abs_err': max_err,
         'ms': tot['ms'], 'plain_ms': tot['plain_ms'],
         'bound_ms': tot['bound_ms'], 'bound_by': 'bytes',
-        'library_ms': None}]}), flush=True)
+        'library_ms': None}, {
+        'name': 'boundary_max_pool_bwd', 'route': 'cuda', 'source': source,
+        'replaces': 'opental_tpu/ops/boundary_pool_pallas.py:57',
+        'launches': train_bwd, 'max_abs_err': bwd_err,
+        'ms': bwd_tot['ms'], 'plain_ms': bwd_tot['plain_ms'],
+        'bound_ms': bwd_tot['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': bwd_tot['library_ms']}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

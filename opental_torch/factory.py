@@ -1,4 +1,5 @@
-"""Config -> model factory (counterpart of `opental_tpu/factory.py:20-66`).
+"""Config -> model, loss configuration and loss weights (counterpart of
+`opental_tpu/factory.py`).
 """
 
 from __future__ import annotations
@@ -9,8 +10,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from opental_torch.config import Config
+from opental_torch.losses.edl import EDLConfig
+from opental_torch.losses.multisegment import LossConfig
 from opental_torch.models.bdnet import BDNet
 from opental_torch.models.layers import FrozenBatchNorm, GroupNorm32
+from opental_torch.train.step import LossWeights
 
 
 def model_flags(cfg: Config) -> Dict[str, Any]:
@@ -23,6 +27,7 @@ def model_flags(cfg: Config) -> Dict[str, Any]:
         'use_rpl': model.get('use_rpl', False),
         'evidence': model.get('evidence', 'exp'),
         'transformer': model.get('transformer', False),
+        'dropout': model.get('dropout', 0.0),
         'arch': model.get('arch', 'thumos'),
     }
 
@@ -30,9 +35,10 @@ def model_flags(cfg: Config) -> Dict[str, Any]:
 def build_model(cfg: Config, frame_num: Optional[int] = None,
                 crop_size: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None) -> BDNet:
-    """The THUMOS BDNet a config describes, for inference (dropout is
-    the identity there). dtype None reads `model.compute_dtype`
-    (bfloat16 | float32, default float32)."""
+    """The THUMOS BDNet a config describes. Train and eval are the
+    module's modes (`.train()` turns on dropout and, with
+    `model.freeze_bn: false`, batch-statistics BN). dtype None reads
+    `model.compute_dtype` (bfloat16 | float32, default float32)."""
     flags = model_flags(cfg)
     for flag in ('use_rpl', 'transformer'):
         if flags[flag]:
@@ -50,10 +56,90 @@ def build_model(cfg: Config, frame_num: Optional[int] = None,
         frame_num=frame_num or cfg.get_path('dataset.training.clip_length',
                                             256),
         crop_size=crop_size or cfg.get_path('dataset.testing.crop_size', 96),
-        freeze_bn_affine=bool(cfg.get_path('model.freeze_bn', True)
-                              and cfg.get_path('model.freeze_bn_affine',
-                                               True)),
+        # reference BN freeze modes (thumos14/BDNet.py:39-49), carried
+        # apart as the JAX factory does (factory.py:44-46)
+        freeze_bn=bool(cfg.get_path('model.freeze_bn', True)),
+        freeze_bn_affine=bool(cfg.get_path('model.freeze_bn_affine', True)),
+        dropout=float(flags['dropout'] or 0.0),
         dtype=None if dtype == torch.float32 else dtype)
+
+
+def cls_loss_type(cfg: Config) -> str:
+    if cfg.get_path('training.edl_loss', False):
+        return 'edl'
+    if cfg.get_path('training.rpl_loss', False):
+        return 'rpl'
+    return 'focal'
+
+
+def build_loss_config(cfg: Config) -> LossConfig:
+    """The detection loss a config describes (factory.py:77-123)."""
+    flags = model_flags(cfg)
+    num_cls = flags['num_classes'] - (1 if flags['os_head'] else 0)
+    kind = cls_loss_type(cfg)
+    if kind == 'rpl':
+        raise NotImplementedError('the RPL loss is not ported yet')
+    edl = None
+    if kind == 'edl':
+        e = cfg.get_path('training.edl_config', {}) or {}
+        edl = EDLConfig(
+            num_classes=num_cls,
+            loss_type=e.get('loss_type', 'log'),
+            evidence=e.get('evidence', 'exp'),
+            with_focal=e.get('with_focal', False),
+            alpha=e.get('alpha', 0.25),
+            gamma=e.get('gamma', 2.0),
+            soft_label=e.get('soft_label', 0.0),
+            iou_aware=e.get('iou_aware', False),
+            with_ghm=e.get('with_ghm', False),
+            with_ibloss=e.get('with_ibloss', False),
+            with_ibm=e.get('with_ibm', False),
+            num_bins=e.get('num_bins', 50),
+            momentum=e.get('momentum', 0.99),
+            ghm_start=e.get('ghm_start', 0),
+            ib_start=e.get('ib_start', 10),
+            ibm_start=e.get('ibm_start', 0),
+        )
+    act = cfg.get_path('training.act_config', {}) or {}
+    return LossConfig(
+        num_classes=num_cls,
+        clip_length=cfg.get_path('dataset.training.clip_length', 256),
+        piou=cfg.get_path('training.piou', 0.0),
+        cls_type=kind,
+        edl=edl,
+        os_head=flags['os_head'],
+        act_margin=act.get('margin', 1.0),
+        act_weight=act.get('weight', 0.1),
+    )
+
+
+def build_loss_weights(cfg: Config) -> LossWeights:
+    tr = cfg.get_path('training', {})
+    return LossWeights(lw=tr.get('lw', 1.0), cw=tr.get('cw', 10.0),
+                       ctw=tr.get('ctw', 1.0), actw=tr.get('actw', 1.0),
+                       ssl=tr.get('ssl', 0.1))
+
+
+def _glorot_(w: torch.Tensor, g: torch.Generator) -> None:
+    rf = math.prod(w.shape[2:])
+    lim = math.sqrt(6.0 / ((w.shape[0] + w.shape[1]) * rf))
+    w.copy_((torch.rand(w.shape, generator=g) * 2 - 1) * lim)
+
+
+def init_train_weights(model: torch.nn.Module, seed: int = 0
+                       ) -> torch.nn.Module:
+    """Seeded starting weights for training, as the JAX package's init and
+    the reference's reset_params give them: glorot-uniform convolutions
+    with zero biases; norms, BN statistics and the ScaleExp scales at
+    their defaults."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv3d)):
+                _glorot_(mod.weight, g)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+    return model
 
 
 HEAD_BIAS_STD = 2.0
@@ -73,10 +159,7 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv3d)):
-                w = mod.weight
-                rf = math.prod(w.shape[2:])
-                lim = math.sqrt(6.0 / ((w.shape[0] + w.shape[1]) * rf))
-                w.copy_((torch.rand(w.shape, generator=g) * 2 - 1) * lim)
+                _glorot_(mod.weight, g)
                 if mod.bias is None:
                     continue
                 if name.endswith('actionness_head.conv1d'):

@@ -1,21 +1,26 @@
 """BDNet: I3D backbone + coarse pyramid + evidential head (PyTorch).
 
-Counterpart of `opental_tpu/models/bdnet.py:24-123`; reference
+Counterpart of `opental_tpu/models/bdnet.py`; reference
 AFSD/thumos14/BDNet.py:435-561. Input clips are (B, C, T, H, W) in
 [-1, 1] (the reference's layout); the out_dict has the JAX package's keys
 and layouts. Top-level names ('backbone._model', 'coarse_pyramid_detection')
-follow the reference state_dict.
+follow the reference state_dict. `ssl_forward` is the SSL triplet pass of
+training (bdnet.py:166-192).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from opental_torch.models.i3d import InceptionI3d
-from opental_torch.models.pyramid import CoarsePyramid
+from opental_torch.models.pyramid import (CoarsePyramid,
+                                          expand_boundary_segments)
+from opental_torch.ops.boundary_pool import boundary_max_pool
+
+SSL_SCALES = (1.0, 4.0, 4.0)
 
 
 def evidence_fn(logit: torch.Tensor, evidence: str = 'exp') -> torch.Tensor:
@@ -62,13 +67,15 @@ class BDNet(nn.Module):
     `crop_size` fixes the spatial kernel of the pyramid's input convs
     (the JAX package derives it from the input at init). `dtype` is the
     compute dtype of the convolutions (None = float32); parameters stay
-    float32.
+    float32. `freeze_bn` / `freeze_bn_affine` are the reference's BN
+    freeze modes; `dropout` acts on the class heads' inputs in train mode.
     """
 
     def __init__(self, in_channels: int = 3, num_classes: int = 16,
                  os_head: bool = False, use_edl: bool = False,
                  evidence: str = 'exp', frame_num: int = 256,
-                 crop_size: int = 96, freeze_bn_affine: bool = True,
+                 crop_size: int = 96, freeze_bn: bool = True,
+                 freeze_bn_affine: bool = True, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_channels = in_channels
@@ -79,12 +86,15 @@ class BDNet(nn.Module):
         self.frame_num = frame_num
         self.crop_size = crop_size
         self.dtype = dtype
+        self.freeze_bn = freeze_bn
         self.backbone = I3DBackbone(in_channels=in_channels,
-                                    bn_freeze_affine=freeze_bn_affine,
+                                    freeze_bn=freeze_bn,
+                                    freeze_bn_affine=freeze_bn_affine,
                                     dtype=dtype)
         self.coarse_pyramid_detection = CoarsePyramid(
             num_classes=self.head_classes, frame_num=frame_num,
-            crop_size=crop_size, os_head=os_head, dtype=dtype)
+            crop_size=crop_size, os_head=os_head, dropout=dropout,
+            dtype=dtype)
 
     @property
     def head_classes(self) -> int:
@@ -102,3 +112,31 @@ class BDNet(nn.Module):
             out['prop_unct'] = dirichlet_uncertainty(out['prop_conf'],
                                                      self.evidence)
         return out
+
+    def ssl_forward(self, x: torch.Tensor, proposals: torch.Tensor
+                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                               List[torch.Tensor]]:
+        """Boundary-contrastive features for the SSL triplet loss
+        (thumos14/BDNet.py:479-503). proposals: (B, 3, 2) cut-paste
+        segments in frame units. Returns per-scale (anchor, positive,
+        negative) lists of (B, C/2) features."""
+        trip = self.coarse_pyramid_detection(self.backbone(x),
+                                             ssl=True)['trip']
+        return self._ssl_triplets(trip, proposals)
+
+    @staticmethod
+    def _ssl_triplets(trip: List[torch.Tensor], proposals: torch.Tensor
+                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                 List[torch.Tensor]]:
+        decoded = proposals[..., :2].float()                # (B, 3, 2)
+        frame_segments = expand_boundary_segments(
+            decoded[..., :1], decoded[..., 1:], plus_one=True)
+        anchor, positive, negative = [], [], []
+        for feat, scale in zip(trip, SSL_SCALES):
+            bound = boundary_max_pool(feat.contiguous(),
+                                      (frame_segments / scale).contiguous())
+            ndim = bound.shape[-1] // 2                     # (B, 3, C)
+            anchor.append(bound[:, 0, ndim:])
+            positive.append(bound[:, 1, :ndim])
+            negative.append(bound[:, 2, :ndim])
+        return anchor, positive, negative

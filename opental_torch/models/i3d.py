@@ -49,11 +49,12 @@ class InceptionModule(nn.Module):
     """4-branch inception block (i3d_backbone.py:90-121)."""
 
     def __init__(self, in_channels: int, out_channels: Sequence[int],
-                 bn_freeze_affine: bool = True,
+                 bn_freeze_affine: bool = True, bn_freeze_stats: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         oc = out_channels
-        kw = dict(bn_freeze_affine=bn_freeze_affine, dtype=dtype)
+        kw = dict(bn_freeze_affine=bn_freeze_affine,
+                  bn_freeze_stats=bn_freeze_stats, dtype=dtype)
         self.b0 = Unit3D(in_channels, oc[0], (1, 1, 1), **kw)
         self.b1a = Unit3D(in_channels, oc[1], (1, 1, 1), **kw)
         self.b1b = Unit3D(oc[1], oc[2], (3, 3, 3), **kw)
@@ -75,10 +76,16 @@ class InceptionI3d(nn.Module):
 
     KEEP = ('Mixed_4f', 'Mixed_5c')
 
-    def __init__(self, in_channels: int = 3, bn_freeze_affine: bool = True,
+    def __init__(self, in_channels: int = 3, freeze_bn: bool = True,
+                 freeze_bn_affine: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        kw = dict(bn_freeze_affine=bn_freeze_affine, dtype=dtype)
+        # reference freeze modes (thumos14/BDNet.py:39-49): freeze_bn keeps
+        # the running statistics and the affine; freeze_bn: false trains
+        # both, and freeze_bn_affine only acts with freeze_bn
+        kw = dict(bn_freeze_stats=freeze_bn,
+                  bn_freeze_affine=freeze_bn and freeze_bn_affine,
+                  dtype=dtype)
         ch = in_channels
         for ep in ENDPOINTS:
             if ep == 'Conv3d_1a_7x7':

@@ -12,8 +12,9 @@ Numerics follow the JAX package:
   weight and bias are cast to it;
 * GroupNorm computes and returns float32 whatever its input dtype, as
   flax's GroupNorm without a dtype does;
-* the frozen BatchNorm folds running stats into one scale and bias,
-  cast to the input dtype: y = x * scale + bias.
+* BatchNorm folds its statistics (running, or the batch's in train mode
+  with freeze_stats off) into one scale and bias, cast to the input
+  dtype: y = x * scale + bias.
 """
 
 from __future__ import annotations
@@ -54,17 +55,26 @@ def _f_pad(sizes: Sequence[int], kernel: Sequence[int],
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm with running statistics over dim 1.
+    """BatchNorm over dim 1 in every reference freeze mode
+    (thumos14/BDNet.py:39-49; `opental_tpu/models/layers.py:45-104`).
 
     freeze_affine=True keeps weight/bias as buffers (the shipped configs'
-    freeze_bn_affine), False as parameters. Train-mode batch statistics
-    wait for the training slice.
+    freeze_bn_affine), False as parameters. freeze_stats=True (the shipped
+    freeze_bn) always normalizes by the running statistics. With
+    freeze_stats=False a module in train mode (`.train()`) normalizes by
+    the biased batch statistics, taken in float32 in the centered two-pass
+    form, and EMA-updates the running statistics in place with the
+    unbiased batch variance (momentum 0.01, torch BatchNorm's train mode);
+    in eval mode it uses the running statistics.
     """
 
     def __init__(self, features: int, eps: float = BN_EPS,
-                 freeze_affine: bool = True):
+                 freeze_affine: bool = True, freeze_stats: bool = True,
+                 momentum: float = 0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
+        self.freeze_stats = freeze_stats
         if freeze_affine:
             self.register_buffer('weight', torch.ones(features))
             self.register_buffer('bias', torch.zeros(features))
@@ -75,12 +85,30 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var.float() + self.eps)
+        if self.training and not self.freeze_stats:
+            xf = x.float()
+            axes = (0,) + tuple(range(2, x.dim()))
+            mean = xf.mean(dim=axes)
+            # centered two-pass variance: E[x^2] - E[x]^2 cancels for
+            # large-mean activations and can go negative; this cannot
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            var = (xf - mean.view(shape)).square().mean(dim=axes).clamp_min(
+                0.0)
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean.detach())
+                self.running_var.mul_(1 - m).add_(
+                    m * (var.detach() * (n / max(n - 1, 1))))
+        else:
+            mean = self.running_mean.float()
+            var = self.running_var.float()
+        inv = torch.rsqrt(var + self.eps)
         gamma = self.weight.float()
         shape = (1, -1) + (1,) * (x.dim() - 2)
         scale = (gamma * inv).to(x.dtype).view(shape)
-        bias = (self.bias.float() - self.running_mean.float() * gamma * inv
-                ).to(x.dtype).view(shape)
+        bias = (self.bias.float() - mean * gamma * inv).to(x.dtype).view(
+            shape)
         return x * scale + bias
 
 
@@ -102,6 +130,7 @@ class Unit3D(nn.Module):
                  stride: Sequence[int] = (1, 1, 1), padding: str = 'same',
                  use_bias: bool = False, use_batch_norm: bool = True,
                  activation: bool = True, bn_freeze_affine: bool = True,
+                 bn_freeze_stats: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel = _to_tuple(kernel, 3)
@@ -114,7 +143,8 @@ class Unit3D(nn.Module):
         self.conv3d = nn.Conv3d(in_channels, features, self.kernel,
                                 stride=self.stride, padding=0,
                                 bias=use_bias)
-        self.bn = (FrozenBatchNorm(features, freeze_affine=bn_freeze_affine)
+        self.bn = (FrozenBatchNorm(features, freeze_affine=bn_freeze_affine,
+                                   freeze_stats=bn_freeze_stats)
                    if use_batch_norm else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,9 @@ the reference's) layout: (B, P, ...) with P = 126 priors at 256 frames.
 Module names follow the reference state_dict
 ('pyramids.0.0.conv3d.weight', 'loc_tower.1.0.conv1d.weight',
 'loc_proposal_branch.lr_conv.1.weight', 'loc_heads.3.scale', ...).
-The SSL, RPL and transformer branches are not ported yet.
+`forward(..., ssl=True)` is the SSL pass: it returns {'trip': [frame-level
+feature, loc lr feature, conf lr feature]} right after level 0's proposal
+branches. The RPL and transformer branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -129,6 +131,7 @@ class CoarsePyramid(nn.Module):
 
     def __init__(self, num_classes: int, frame_num: int = 256,
                  crop_size: int = 96, os_head: bool = False,
+                 dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         oc = CONV_CHANNELS
@@ -169,11 +172,17 @@ class CoarsePyramid(nn.Module):
         self.center_head = Unit1D(oc, 1, 3, activation=False, dtype=dtype)
         self.loc_heads = nn.ModuleList([ScaleExp()
                                         for _ in range(LAYER_NUM)])
+        # on the class heads' inputs only, as the JAX package
+        # (pyramid.py:213-231); the identity in eval mode
+        self.dropout = nn.Dropout(dropout) if dropout > 0 else None
         self.register_buffer('priors',
                              torch.from_numpy(make_priors(frame_num)),
                              persistent=False)
 
-    def forward(self, feat_dict: Dict[str, torch.Tensor]
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.dropout is None else self.dropout(x)
+
+    def forward(self, feat_dict: Dict[str, torch.Tensor], ssl: bool = False
                 ) -> Dict[str, Any]:
         x1 = feat_dict['Mixed_4f']            # (B, 832, T/4, h, w)
         x2 = feat_dict['Mixed_5c']            # (B, 1024, T/8, h', w')
@@ -201,7 +210,8 @@ class CoarsePyramid(nn.Module):
             loc_out = _channels_last(
                 self.loc_heads[i](self.loc_head(loc_feat)))   # (B, t, 2)
             locs.append(loc_out)
-            confs.append(_channels_last(self.conf_head(conf_feat)))
+            confs.append(_channels_last(self.conf_head(
+                self._drop(conf_feat))))
             if self.os_head:
                 acts.append(_channels_last(self.actionness_head(conf_feat)))
 
@@ -219,8 +229,11 @@ class CoarsePyramid(nn.Module):
                 out['end_loc_prop'] = loc_lr[..., nd:]
                 out['start_conf_prop'] = conf_lr[..., :nd]
                 out['end_conf_prop'] = conf_lr[..., nd:]
+                if ssl:
+                    return {'trip': [frame_tc, loc_lr, conf_lr]}
             prop_locs.append(_channels_last(self.prop_loc_head(loc_prop)))
-            prop_confs.append(_channels_last(self.prop_conf_head(conf_prop)))
+            prop_confs.append(_channels_last(self.prop_conf_head(
+                self._drop(conf_prop))))
             if self.os_head:
                 prop_acts.append(_channels_last(
                     self.prop_actionness_head(conf_prop)))

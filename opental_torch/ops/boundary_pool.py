@@ -11,10 +11,11 @@ where channel half h = c // (C/2) reads (l, r) from segments[b, k,
 gradient flows to the FIRST argmax of each window.
 
 `boundary_max_pool` is the op the model calls: a CPU tensor goes to the
-plain version, a CUDA tensor to the hand-written kernel
-(`boundary_pool_cuda`) or a raise. `force_plain` exists for the tests and
-chip_smoke.py only, to hold the kernel against the plain version on the
-card.
+plain version, a CUDA tensor to the hand-written kernels
+(`boundary_pool_cuda`: the forward, and when x needs a gradient the
+forward that also writes the argmax plus the backward) or a raise.
+`force_plain` exists for the tests and chip_smoke.py only, to hold the
+kernels against the plain version on the card.
 """
 
 from __future__ import annotations
@@ -73,10 +74,20 @@ class _PlainPool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (argmax,) = ctx.saved_tensors
-        b, _, c = argmax.shape
-        dx = torch.zeros((b, ctx.t_len, c), dtype=g.dtype, device=g.device)
-        dx.scatter_add_(1, argmax, g)
-        return dx, None
+        return plain_backward(argmax, g, ctx.t_len), None
+
+
+def plain_backward(argmax: torch.Tensor, g: torch.Tensor, t_len: int
+                   ) -> torch.Tensor:
+    """dx (B, T, C) in g's dtype: each g[b, k, c] added at its first
+    argmax, summed in float32 in ascending k and rounded once, the
+    kernel's order (one scatter per k, so no two adds of a scatter meet)."""
+    b, k_num, c = argmax.shape
+    dx = torch.zeros((b, t_len, c), dtype=torch.float32, device=g.device)
+    idx, src = argmax.long(), g.float()
+    for k in range(k_num):
+        dx.scatter_add_(1, idx[:, k:k + 1], src[:, k:k + 1])
+    return dx.to(g.dtype)
 
 
 def boundary_max_pool_plain(x: torch.Tensor, segments: torch.Tensor
@@ -89,13 +100,19 @@ def boundary_max_pool_plain(x: torch.Tensor, segments: torch.Tensor
 class _CudaPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, segments):
-        return boundary_pool_cuda.boundary_max_pool_fwd(x, segments)
+        train = ctx.needs_input_grad[0]
+        out, argmax = boundary_pool_cuda.boundary_max_pool_fwd(
+            x, segments, with_argmax=train)
+        if train:
+            ctx.t_len = x.shape[1]
+            ctx.save_for_backward(argmax)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            'boundary_max_pool on CUDA has no backward yet: the CUDA '
-            'backward lands with the training slice')
+        (argmax,) = ctx.saved_tensors
+        return boundary_pool_cuda.boundary_max_pool_bwd(
+            argmax, g.contiguous(), ctx.t_len), None
 
 
 _FORCE_PLAIN = False

@@ -31,8 +31,9 @@ def resolve_checkpoint(path: str) -> str:
 
 def load_variables(model: torch.nn.Module, checkpoint_path: str
                    ) -> torch.nn.Module:
-    """Load a reference `checkpoint-*.ckpt` or a port state_dict saved
-    with torch.save into `model`, strictly."""
+    """Load a reference `checkpoint-*.ckpt`, a port state_dict saved with
+    torch.save, or the model weights of a port training checkpoint
+    (`train/checkpoint.py`) into `model`, strictly."""
     path = resolve_checkpoint(checkpoint_path)
     if os.path.isdir(path):
         raise ValueError(
@@ -42,6 +43,8 @@ def load_variables(model: torch.nn.Module, checkpoint_path: str
             'opental_torch.utils.convert.from_jax_variables, then '
             'torch.save the state_dict')
     sd = torch.load(path, map_location='cpu', weights_only=True)
+    if isinstance(sd.get('model'), dict):
+        sd = sd['model']
     sd = {k: v for k, v in sd.items()
           if not k.endswith('num_batches_tracked')}
     model.load_state_dict(sd, strict=True)

@@ -1,0 +1,138 @@
+"""One training step: forward, the full loss, backward and the Adam update.
+
+Counterpart of `opental_tpu/train/step.py:26-243` (reference train loop
+body, AFSD/thumos14/train.py:164-252). The main and SSL passes run one
+after the other through the model in train mode, as the reference does
+(train.py:222-241): with `model.freeze_bn: false` each pass normalizes by
+its own batch statistics and EMA-updates the running ones. The SSL
+triplet loss is gated by the mean of the batch's augmentation flags. The
+step updates the model, the optimizer and the EDL state in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from opental_torch.losses.boundary import boundary_losses, ssl_triplet_loss
+from opental_torch.losses.edl import EDLState
+from opental_torch.losses.multisegment import LossConfig, multisegment_loss
+
+SSL_SCALE_WEIGHTS = (1.0, 0.1, 0.1)
+
+
+class LossWeights(NamedTuple):
+    """Scalar loss weights (reference argparse defaults,
+    AFSD/common/config.py:23-28)."""
+    lw: float = 1.0       # localization
+    cw: float = 10.0      # classification
+    ctw: float = 1.0      # centerness
+    actw: float = 1.0     # actionness
+    ssl: float = 0.1      # triplet
+
+
+@dataclass
+class TrainState:
+    """What a step changes: the model's parameters and BN statistics, the
+    optimizer's moments, the EDL bin state, and the step count."""
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    edl_state: Optional[EDLState] = None
+    step: int = 0
+
+
+def device_ingest(batch: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Clips on the device into the model's input: uint8 [0, 255] ->
+    float32 [-1, 1] in the host transform's op order
+    (transforms.normalize_clip), and (B, T, H, W, C) -> (B, C, T, H, W)."""
+    out = dict(batch)
+    for k in ('clips', 'ssl_clips'):
+        if k in out:
+            x = out[k]
+            if x.dtype == torch.uint8:
+                x = (x.float() / 255.0) * 2.0 - 1.0
+            out[k] = x.permute(0, 4, 1, 2, 3).contiguous()
+    return out
+
+
+def make_optimizer(model: torch.nn.Module, learning_rate: float,
+                   weight_decay: float) -> torch.optim.Adam:
+    """torch Adam with weight decay added to the gradient before the
+    moments (not AdamW), betas (0.9, 0.999), eps 1e-8
+    (thumos14/train.py:321-323)."""
+    return torch.optim.Adam(model.parameters(), lr=learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
+
+
+def compute_losses(model: torch.nn.Module, loss_cfg: LossConfig,
+                   weights: LossWeights, batch: Dict[str, torch.Tensor],
+                   edl_state: Optional[EDLState], epoch: int
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                              Optional[EDLState]]:
+    """Full training objective (train.py:222-241) on an ingested batch:
+    clips (B, C, T, H, W), truths (B, N, 2), labels (B, N), gt_mask (B, N),
+    scores (B, 2, T), ssl_clips, ssl_props (B, 3, 2), ssl_flags (B,).
+    Returns (cost, loss terms, new EDL state)."""
+    out = model(batch['clips'])
+    losses, new_edl = multisegment_loss(
+        loss_cfg, out, batch['truths'], batch['labels'], batch['gt_mask'],
+        edl_state=edl_state, epoch=epoch)
+    loss_start, loss_end = boundary_losses(out, batch['scores'])
+    cost = (weights.lw * losses['loss_l'] + weights.cw * losses['loss_c']
+            + weights.lw * losses['loss_prop_l']
+            + weights.cw * losses['loss_prop_c']
+            + weights.ctw * losses['loss_ct'] + loss_start + loss_end)
+    if loss_cfg.os_head:
+        cost = cost + weights.actw * (losses['loss_act']
+                                      + losses['loss_prop_act'])
+
+    loss_trip = cost.new_zeros(())
+    if weights.ssl > 0 and 'ssl_clips' in batch:
+        anchors, positives, negatives = model.ssl_forward(
+            batch['ssl_clips'], batch['ssl_props'])
+        # the reference gates by the augmentation's success flag
+        # (train.py:237); a batch weighs by its flagged fraction
+        flag = batch['ssl_flags'].float().mean()
+        loss_trip = ssl_triplet_loss(anchors, positives, negatives,
+                                     SSL_SCALE_WEIGHTS) * flag
+        cost = cost + weights.ssl * loss_trip
+
+    metrics = dict(losses)
+    metrics.update({'loss_start': loss_start, 'loss_end': loss_end,
+                    'loss_trip': loss_trip, 'cost': cost})
+    return cost, metrics, new_edl
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def train_step(state: TrainState, loss_cfg: LossConfig,
+               weights: LossWeights, batch: Dict[str, torch.Tensor],
+               epoch: int) -> Dict[str, torch.Tensor]:
+    """One optimizer step on a batch already on the model's device.
+    Updates `state` in place and returns the detached metrics (loss terms,
+    cost, grad_norm) as device tensors: reading them is the caller's
+    synchronisation."""
+    model = state.model
+    model.train()
+    batch = device_ingest(batch)
+    state.optimizer.zero_grad(set_to_none=True)
+    cost, metrics, new_edl = compute_losses(model, loss_cfg, weights, batch,
+                                            state.edl_state, epoch)
+    cost.backward()
+    for p in model.parameters():
+        if p.grad is None:
+            # a parameter off this step's graph still takes weight decay,
+            # as the JAX step's zero gradient does
+            p.grad = torch.zeros_like(p)
+    metrics['grad_norm'] = global_norm(p.grad for p in model.parameters())
+    state.optimizer.step()
+    state.edl_state = new_edl
+    state.step += 1
+    return {k: v.detach() for k, v in metrics.items()}

@@ -1,1 +1,2 @@
-"""Utilities: weight conversion from the JAX package's variables."""
+"""Utilities: weight conversion from the JAX package's variables, the
+synthetic dataset."""

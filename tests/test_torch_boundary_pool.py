@@ -109,4 +109,44 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         boundary_pool_cuda.boundary_max_pool_fwd(torch.from_numpy(x),
                                                  torch.from_numpy(seg))
-    assert boundary_pool_cuda._fn is None
+    assert not boundary_pool_cuda._fns
+
+
+@pytest.mark.parametrize('kind', ['ties', 'degenerate', 'negative',
+                                  'out_of_range', 'full'])
+def test_plain_backward_matches_pallas_interpret(kind):
+    """The plain first-argmax backward against the Pallas `_bwd_kernel`
+    (interpret mode) that kernel B2 replaces: ties go to the lowest t."""
+    x, seg = make_case(kind, seed=5)
+    g = np.random.RandomState(6).randn(
+        x.shape[0], seg.shape[1], x.shape[2]).astype(np.float32)
+
+    def loss(xx):
+        return jnp.sum(boundary_max_pool_interpret(xx, jnp.asarray(seg))
+                       * g)
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = tbp.boundary_max_pool(xt, torch.from_numpy(seg))
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_plain_backward_sums_in_float32():
+    """bf16 gradients are summed in float32 and rounded once, as the CUDA
+    backward does."""
+    argmax = torch.tensor([[[0, 1], [0, 1], [0, 0]]])
+    g = torch.tensor([[[1.0, 256.0], [1.0 / 256, 1.0], [1.0 / 256, 3.0]]])
+    dx = tbp.plain_backward(argmax, g.to(torch.bfloat16), 2)
+    assert dx.dtype == torch.bfloat16
+    # summed in bf16 step by step, 1 + 1/256 rounds back to 1 each time
+    want = torch.tensor([[[1.0 + 2.0 / 256, 3.0], [0.0, 256.0]]])
+    assert torch.equal(dx, want.to(torch.bfloat16))
+
+
+def test_cuda_backward_wrapper_rejects_cpu_tensors():
+    g = torch.zeros(1, 3, 4)
+    with pytest.raises(ValueError, match='CUDA'):
+        boundary_pool_cuda.boundary_max_pool_bwd(
+            torch.zeros(1, 3, 4, dtype=torch.int32), g, 5)
+    assert not boundary_pool_cuda._fns

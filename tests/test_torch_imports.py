@@ -114,3 +114,32 @@ def test_chip_smoke_fails_without_a_card():
                          timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_train_entry_points_need_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    from opental_torch.config import load_config
+    from opental_torch.tools import train as train_cli
+    from opental_torch.train.loop import train
+    cfg_path = os.path.join(ROOT, 'configs', 'thumos14_opental_final.yaml')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train(load_config(cfg_path))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train_cli.main([cfg_path])
+    with pytest.raises(NotImplementedError, match='use_mesh'):
+        train(load_config(cfg_path, overrides={'training.use_mesh': True}),
+              device='cpu')
+
+
+def test_training_modules_are_ported():
+    """The training slice's modules are part of the port (and so of the
+    blocked-import check above)."""
+    mods = set(port_modules())
+    assert {'opental_torch.train.step', 'opental_torch.train.loop',
+            'opental_torch.train.checkpoint', 'opental_torch.tools.train',
+            'opental_torch.losses.edl', 'opental_torch.losses.cls',
+            'opental_torch.losses.boundary',
+            'opental_torch.losses.multisegment',
+            'opental_torch.data.prefetch',
+            'opental_torch.utils.synthetic'} <= mods

@@ -29,13 +29,31 @@ Phases (any failure ends the run with a non-zero exit):
   8. train step time at bs=1 and bs=8 (f32), peak memory, a profile
   9. forward + decode windows/s at W=32 and W=128 (bf16), soft-NMS time
      per video
-Then a `kernels` JSON line, the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}. Weights and data are random,
-made from seeds; no network, one card.
+ 10. the stem pack kernel (csrc/stem_pack.cu: B3, the v1 layout, and B4,
+     the v2 layout) vs its plain version, exactly, on the padded W=32
+     batch as the model hands it over, its contiguous copy and odd
+     shapes, f32 and bf16, fp 1 and 2; times of kernel, plain version and
+     bound at the main paths' inputs
+ 11. the stem convolution at W=32: cuDNN's plain stride-2 Conv3d vs pack +
+     F.conv2d in each layout (bf16; f32 with and without TF32), and the
+     forward + weight gradient at bs=1 and bs=8
+ 12. the full-width BDNet with model.stem_pallas on, f32, TF32 off: card
+     vs CPU at W=1, flag on vs off at W=32, 1 pack per forward
+ 13. inference end to end with model.stem_pallas on (run_test); launch
+     counts are read from this run only
+ 14. one full-width bs=1 train step with model.stem_pallas on vs off
+     (f32, TF32 off): losses, grad norm, the stem's gradient
+ 15. training end to end with model.stem_pallas on (train.loop.train);
+     launch counts are read from this run only
+Phases 8 and 9 run with model.stem_pallas off and on. Then a `kernels`
+JSON line, the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}. Weights and data are random, made from
+seeds; no network, one card.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -47,6 +65,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -57,8 +76,10 @@ from opental_torch.infer.pipeline import (InferencePipeline,  # noqa: E402
 from opental_torch.losses.edl import EDLState  # noqa: E402
 from opental_torch.models import bdnet as bdnet_mod  # noqa: E402
 from opental_torch.models import pyramid  # noqa: E402
+from opental_torch.models import layers  # noqa: E402
 from opental_torch.models.bdnet import BDNet  # noqa: E402
-from opental_torch.ops import _build, boundary_pool, boundary_pool_cuda  # noqa: E402
+from opental_torch.ops import (_build, boundary_pool,  # noqa: E402
+                               boundary_pool_cuda, stem_pack, stem_pack_cuda)
 from opental_torch.tools import train as train_cli  # noqa: E402
 from opental_torch.tools.test import run_test  # noqa: E402
 from opental_torch.train import checkpoint  # noqa: E402
@@ -165,9 +186,10 @@ def random_clips(n: int, seed: int) -> torch.Tensor:
     return (u8.float() / 255.0) * 2.0 - 1.0
 
 
-def build_model(state_dict, dtype, device) -> BDNet:
+def build_model(state_dict, dtype, device, stem_pallas=False) -> BDNet:
     m = BDNet(num_classes=CLASSES, os_head=True, use_edl=True,
               evidence='exp', frame_num=FRAMES, crop_size=CROP,
+              stem_pallas=stem_pallas,
               dtype=None if dtype == torch.float32 else dtype)
     m.load_state_dict(state_dict, strict=True)
     return m.to(device).eval()
@@ -339,31 +361,9 @@ def write_dataset(root: str, seed: int = 0):
     return lengths
 
 
-def phase_end_to_end(state_dict, root):
-    log('== phase 6: inference end to end (tools.test.run_test, bf16)')
-    lengths = write_dataset(root)
-    ckpt = os.path.join(root, 'checkpoint-1.ckpt')
-    torch.save(state_dict, ckpt)
-    cfg = load_config(CONFIG, overrides={
-        'dataset.class_info_path': os.path.join(root, 'classes.txt'),
-        'dataset.testing.video_info_path': os.path.join(root,
-                                                        'video_info.csv'),
-        'dataset.testing.video_data_path': os.path.join(root, 'test_npy'),
-        'testing.checkpoint_path': ckpt,
-        'testing.output_path': os.path.join(root, 'out'),
-    })
-    n_windows = sum(len(window_offsets(t, FRAMES, 128))
-                    for t in lengths.values())
-    n_forwards = sum(math.ceil(len(window_offsets(t, FRAMES, 128)) / 128)
-                     for t in lengths.values())
-    boundary_pool_cuda.LAUNCHES = boundary_pool_cuda.BWD_LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    path = run_test(cfg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = boundary_pool_cuda.LAUNCHES
-    assert boundary_pool_cuda.BWD_LAUNCHES == 0, 'backward in inference'
+def check_detection_json(path, lengths) -> int:
+    """The detection JSON has every video, finite proposals with ordered
+    segments, and some proposals; returns their number."""
     with open(path) as f:
         payload = json.load(f)
     assert set(payload) >= {'version', 'results'}, set(payload)
@@ -379,6 +379,44 @@ def phase_end_to_end(state_dict, root):
             assert 0.0 <= p['segment'][0] <= p['segment'][1]
         n_props += len(props)
     assert n_props > 0, 'no proposals'
+    return n_props
+
+
+def synthetic_test_config(root, **overrides):
+    """The shipped config on the synthetic videos of phase 6."""
+    return load_config(CONFIG, overrides=dict({
+        'dataset.class_info_path': os.path.join(root, 'classes.txt'),
+        'dataset.testing.video_info_path': os.path.join(root,
+                                                        'video_info.csv'),
+        'dataset.testing.video_data_path': os.path.join(root, 'test_npy'),
+        'testing.checkpoint_path': os.path.join(root, 'checkpoint-1.ckpt'),
+        'testing.output_path': os.path.join(root, 'out'),
+    }, **overrides))
+
+
+def forwards_of(lengths) -> int:
+    return sum(math.ceil(len(window_offsets(t, FRAMES, 128)) / 128)
+               for t in lengths.values())
+
+
+def phase_end_to_end(state_dict, root):
+    log('== phase 6: inference end to end (tools.test.run_test, bf16)')
+    lengths = write_dataset(root)
+    torch.save(state_dict, os.path.join(root, 'checkpoint-1.ckpt'))
+    cfg = synthetic_test_config(root)
+    n_windows = sum(len(window_offsets(t, FRAMES, 128))
+                    for t in lengths.values())
+    n_forwards = forwards_of(lengths)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = run_test(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = boundary_pool_cuda.LAUNCHES
+    assert boundary_pool_cuda.BWD_LAUNCHES == 0, 'backward in inference'
+    assert pack_launches() == 0, 'stem pack with model.stem_pallas off'
+    n_props = check_detection_json(path, lengths)
     assert launches == 24 * n_forwards, (launches, n_forwards)
     log(f'videos {len(lengths)}, windows {n_windows}, proposals {n_props}, '
         f'wall {wall:.3f} s, {n_windows / wall:.2f} windows/s (first run, '
@@ -393,7 +431,7 @@ def phase_end_to_end(state_dict, root):
     wall = time.perf_counter() - t0
     log(f'second (warm) run: wall {wall:.3f} s, {n_windows / wall:.2f} '
         f'windows/s')
-    return launches, lengths
+    return launches, lengths, n_windows / wall
 
 
 def profile_device(fn, label: str, top: int = 8) -> float:
@@ -441,22 +479,33 @@ def profile_device(fn, label: str, top: int = 8) -> float:
 
 
 def phase_throughput(state_dict, root, lengths):
-    log(f'== phase 9: forward + decode throughput (bf16), soft-NMS time, '
-        f'on {card_line()}')
-    model = build_model(state_dict, torch.bfloat16, 'cuda')
-    pipe = InferencePipeline(model, clip_length=FRAMES, stride=128,
-                             crop_size=CROP, top_k=5000, use_edl=True,
-                             os_head=True, device='cuda')
-    for w in (32, 128):
-        clips = random_clips(w, seed=2)
-        ms = time_ms(lambda: pipe.forward_decode(clips), reps=5, warmup=2)
-        log(f'forward+decode W={w}: {ms:.2f} ms, {w / ms * 1e3:.1f} '
-            f'windows/s')
-        if w == 32:
-            profile_device(lambda: pipe.forward_decode(clips),
-                           'forward+decode W=32')
-        del clips
-    torch.cuda.empty_cache()
+    log(f'== phase 9: forward + decode throughput (bf16) with '
+        f'model.stem_pallas off and on, soft-NMS time, on {card_line()}')
+    for stem in (False, True):
+        model = build_model(state_dict, torch.bfloat16, 'cuda',
+                            stem_pallas=stem)
+        pipe = InferencePipeline(model, clip_length=FRAMES, stride=128,
+                                 crop_size=CROP, top_k=5000, use_edl=True,
+                                 os_head=True, device='cuda')
+        for w in (32, 128):
+            clips = random_clips(w, seed=2)
+            pipe.forward_decode(clips)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: pipe.forward_decode(clips), reps=5,
+                         warmup=2)
+            mem = torch.cuda.max_memory_allocated() / 2**30
+            log(f'stem_pallas {stem}: forward+decode W={w}: {ms:.2f} ms, '
+                f'{w / ms * 1e3:.1f} windows/s, peak memory {mem:.2f} GiB')
+            if w == 32:
+                profile_device(lambda: pipe.forward_decode(clips),
+                               f'forward+decode W=32 stem_pallas {stem}')
+            del clips
+        if not stem:
+            off_pipe = pipe
+        del model, pipe
+        torch.cuda.empty_cache()
+    pipe = off_pipe
     nms_ms = []
     for name, t in lengths.items():
         data = np.load(os.path.join(root, 'test_npy', name + '.npy'))
@@ -748,7 +797,7 @@ def phase_train_end_to_end(root):
                                       clip_length=FRAMES, crop_size=CROP,
                                       spatial=112, seed=0)
     cfg = load_config(cfg_path, overrides={'training.max_epoch': 2})
-    boundary_pool_cuda.LAUNCHES = boundary_pool_cuda.BWD_LAUNCHES = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = train_loop(cfg, max_steps_per_epoch=2)
@@ -761,6 +810,7 @@ def phase_train_end_to_end(root):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES
+    assert pack_launches() == 0, 'stem pack with model.stem_pallas off'
     assert checkpoint.latest_epoch(ckdir) == SAVE_AFTER_EPOCH + 1
     payload = torch.load(checkpoint.epoch_path(ckdir, SAVE_AFTER_EPOCH + 1),
                          map_location='cpu', weights_only=True)
@@ -789,42 +839,390 @@ def phase_train_end_to_end(root):
             assert all(math.isfinite(v) for v in
                        [p['score'], p['uncertainty'], *p['segment']]), p
     log(f'run_test on the trained checkpoint: {n} proposals, finite')
-    return fwd, bwd
+    return fwd, bwd, cfg_path
 
 
 def phase_train_speed(cfg):
-    log(f'== phase 8: train step time (f32, full width) on {card_line()}')
+    log(f'== phase 8: train step time (f32, full width) with '
+        f'model.stem_pallas off and on, in turns, on {card_line()}')
     loss_cfg = factory.build_loss_config(cfg)
     weights = factory.build_loss_weights(cfg)
-    model = train_model(cfg, FRAMES, CROP, 'cuda')
-    state = TrainState(model=model, optimizer=make_optimizer(model, 1e-5,
-                                                             1e-3),
-                       edl_state=EDLState.create(loss_cfg.edl, 'cuda'))
+    states = {}
+    for stem in (False, True):
+        model = train_model(load_config(CONFIG, overrides={
+            'model.stem_pallas': stem}), FRAMES, CROP, 'cuda')
+        states[stem] = TrainState(
+            model=model, optimizer=make_optimizer(model, 1e-5, 1e-3),
+            edl_state=EDLState.create(loss_cfg.edl, 'cuda'))
     out = {}
     for bs, reps in ((1, 6), (8, 3)):
         batch = train_batch(bs, FRAMES, CROP, 5, 'cuda')
 
-        def step():
-            train_step(state, loss_cfg, weights, batch, 11)
+        def step(stem):
+            train_step(states[stem], loss_cfg, weights, batch, 11)
 
-        step()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / reps
-        mem = torch.cuda.max_memory_allocated() / 2**30
-        out[bs] = (ms, mem)
-        log(f'bs={bs}: {ms:.1f} ms per step, {bs / ms * 1e3:.2f} clips/s, '
-            f'peak memory {mem:.2f} GiB')
-        busy = profile_device(step, f'train step bs={bs}', top=10)
-        log(f'bs={bs}: device busy {busy:.2f} ms of the {ms:.1f} ms step '
-            f'without the profiler ({busy / ms:.1%})')
+        for stem in (False, True):
+            step(stem)
+        ms, mem = {False: 0.0, True: 0.0}, {False: 0.0, True: 0.0}
+        # off, on, on, off: the host-bound step drifts with the host
+        for stem in (False, True, True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step(stem)
+            torch.cuda.synchronize()
+            ms[stem] += (time.perf_counter() - t0) * 1e3 / reps / 2
+            mem[stem] = max(mem[stem],
+                            torch.cuda.max_memory_allocated() / 2**30)
+        for stem in (False, True):
+            out[(stem, bs)] = (ms[stem], mem[stem])
+            log(f'stem_pallas {stem}, bs={bs}: {ms[stem]:.1f} ms per step, '
+                f'{bs / ms[stem] * 1e3:.2f} clips/s, peak memory '
+                f'{mem[stem]:.2f} GiB (both models\' states resident)')
+        for stem in (False, True):
+            busy = profile_device(lambda: step(stem),
+                                  f'train step bs={bs} stem_pallas {stem}',
+                                  top=10)
+            log(f'bs={bs} stem_pallas {stem}: device busy {busy:.2f} ms of '
+                f'the {ms[stem]:.1f} ms step without the profiler '
+                f'({busy / ms[stem]:.1%})')
         del batch
         torch.cuda.empty_cache()
+    del states
+    torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------- the space-to-depth stem
+
+STEM_KERNEL = (7, 7, 7)
+STEM_CFG = {'model.stem_pallas': True}
+
+
+def pack_launches() -> int:
+    return stem_pack_cuda.V1_LAUNCHES + stem_pack_cuda.V2_LAUNCHES
+
+
+def reset_counts():
+    boundary_pool_cuda.LAUNCHES = boundary_pool_cuda.BWD_LAUNCHES = 0
+    stem_pack_cuda.V1_LAUNCHES = stem_pack_cuda.V2_LAUNCHES = 0
+
+
+def pack_bound_ms(xp: torch.Tensor, a_t: int = 4) -> float:
+    """Least time for one pack: every element of xp read once (the taps
+    of the t_out frames cover all of it) and z written once, over the
+    memory rate."""
+    b, tp, hp, wp, c = xp.shape
+    z = b * (tp // 2 - a_t + 1) * hp * wp * 2 * a_t * c
+    return (xp.numel() + z) * xp.element_size() / HBM_BYTES_PER_S * 1e3
+
+
+PACKS = {   # name: (kernel, plain version, keyword arguments)
+    'v1': (stem_pack_cuda.stem_pack96, stem_pack.stem_pack96_plain, {}),
+    'v2 fp=1': (stem_pack_cuda.stem_pack96_v2,
+                stem_pack.stem_pack96_v2_plain, {'fp': 1}),
+    'v2 fp=2': (stem_pack_cuda.stem_pack96_v2,
+                stem_pack.stem_pack96_v2_plain, {'fp': 2}),
+}
+
+
+def phase_stem_pack_vs_plain(clips):
+    log('== phase 10: stem pack kernel (B3 v1, B4 v2) vs plain version')
+    g = torch.Generator(device='cuda').manual_seed(11)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        xp = layers.space_to_depth_pad(clips.to(dtype), STEM_KERNEL)
+        odd = torch.randn((2, 3, 18, 26, 38), generator=g, device='cuda')
+        cases += [(f'W=32 model view {dtype}', xp),
+                  (f'W=32 contiguous {dtype}', xp.contiguous()),
+                  (f'(3, 22, 10, 14, 3) {dtype}', torch.randn(
+                      (3, 22, 10, 14, 3), generator=g, device='cuda').to(
+                      dtype)),
+                  (f'(2, 18, 26, 38, 3) view {dtype}',
+                   odd.to(dtype).permute(0, 2, 3, 4, 1))]
+    err = {'v1': 0.0, 'v2': 0.0}
+    for label, xp in cases:
+        for name, (kernel, plain, kw) in PACKS.items():
+            got, want = kernel(xp, **kw), plain(xp, **kw)
+            diff = (got.float() - want.float()).abs().max().item()
+            err[name[:2]] = max(err[name[:2]], diff)
+            if not torch.equal(got, want):
+                raise AssertionError(f'{name} kernel != plain on {label}: '
+                                     f'max |diff| {diff}')
+            del got, want
+    log(f'kernel == plain exactly (torch.equal) on {len(cases)} inputs x '
+        f'{{{", ".join(PACKS)}}}: the W=32 batch as the model hands it '
+        f'over (a permuted view), its contiguous copy, Hp not a multiple '
+        f'of 8, Wp != Hp, f32 and bf16; max_abs_err {err}')
+
+    # times at the main paths' inputs: inference packs the W-window
+    # batch in bf16 (v2), training the bs=1 or bs=8 batch in f32 (v1)
+    times = {}
+    log('per call, device ms: kernel, plain, bound (xp + z bytes / '
+        '3.35 TB/s); xp (B, 262, 102, 102, 3) as the model hands it over')
+    for name, dtype, b in (('v2 fp=1', torch.bfloat16, 32),
+                           ('v1', torch.bfloat16, 32),
+                           ('v2 fp=1', torch.float32, 32),
+                           ('v1', torch.float32, 32),
+                           ('v1', torch.float32, 1),
+                           ('v1', torch.float32, 8)):
+        xp = layers.space_to_depth_pad(clips[:b].to(dtype), STEM_KERNEL)
+        kernel, plain, kw = PACKS[name]
+        r = {'ms': device_ms(lambda: kernel(xp, **kw), reps=20),
+             'plain_ms': device_ms(lambda: plain(xp, **kw), reps=3),
+             'bound_ms': pack_bound_ms(xp)}
+        times[(name[:2], dtype, b)] = r
+        log(f'  {name:8s} {str(dtype):15s} B={b:<3d} kernel {r["ms"]:.4f}  '
+            f'plain {r["plain_ms"]:.4f}  bound {r["bound_ms"]:.4f}  '
+            f'bound/kernel {r["bound_ms"] / r["ms"]:.3f}')
+    del cases
+    torch.cuda.empty_cache()
+    return err, times
+
+
+def phase_stem_layouts(clips, weight):
+    log('== phase 11: the stem convolution at W=32: plain Conv3d (cuDNN) '
+        'vs pack + F.conv2d in each layout')
+    flags = torch.backends.cudnn.allow_tf32
+    out = {}
+    try:
+        for dtype, tf32 in ((torch.bfloat16, flags), (torch.float32, False),
+                            (torch.float32, True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            x, w = clips.to(dtype), weight.to(dtype)
+            xp = layers.space_to_depth_pad(x, STEM_KERNEL)
+            pads = layers._f_pad(x.shape[2:], STEM_KERNEL, (2, 2, 2))
+            fns = {'Conv3d': lambda: F.conv3d(F.pad(x, pads), w, stride=2),
+                   'v2 NCHW': lambda: stem_pack.stem_conv_v2(xp, w),
+                   'v1 channels_last': lambda: stem_pack.stem_conv_v1(xp, w)}
+            tag = f'{dtype}' + (', TF32' if tf32 and dtype == torch.float32
+                                else '')
+            with torch.inference_mode():
+                ys = {k: f() for k, f in fns.items()}
+                for k in ('v2 NCHW', 'v1 channels_last'):
+                    diff = (ys[k].float() - ys['Conv3d'].float()).abs().max()
+                    log(f'  {tag}: {k} vs Conv3d max |diff| {diff.item():.3g}')
+                    if dtype == torch.float32 and not tf32:
+                        torch.testing.assert_close(ys[k], ys['Conv3d'],
+                                                   rtol=1e-3, atol=2e-3)
+                del ys
+                for k, f in fns.items():
+                    out[(k, tag)] = time_ms(f, reps=5, warmup=2)
+            log(f'  {tag}: ' + ', '.join(f'{k} {out[(k, tag)]:.3f} ms'
+                                         for k in fns))
+        # the training side: forward + weight gradient at bs=1 and bs=8,
+        # f32 with PyTorch's default TF32 convolutions (the pack has no
+        # gradient)
+        torch.backends.cudnn.allow_tf32 = flags
+        w = weight.clone().requires_grad_(True)
+        for bs in (1, 8):
+            x = clips[:bs]
+            xp = layers.space_to_depth_pad(x, STEM_KERNEL)
+            pads = layers._f_pad(x.shape[2:], STEM_KERNEL, (2, 2, 2))
+            gy = torch.randn((bs, 64, 128, 48, 48), device='cuda')
+            fns = {'Conv3d': lambda: F.conv3d(F.pad(x, pads), w, stride=2),
+                   'v2 NCHW': lambda: stem_pack.stem_conv_v2(xp, w),
+                   'v1 channels_last': lambda: stem_pack.stem_conv_v1(xp,
+                                                                      w)}
+            tag = f'train bs={bs}'
+            # in turns (Conv3d, v2, v1, v1, v2, Conv3d): the two layouts
+            # are close here
+            for k in list(fns) + list(fns)[::-1]:
+                ms = time_ms(lambda: fns[k]().backward(gy), reps=10,
+                             warmup=2)
+                out[(k, tag)] = out.get((k, tag), 0.0) + ms / 2
+            log(f'  forward + weight gradient, bs={bs} f32 (TF32 as '
+                'default): ' + ', '.join(f'{k} {out[(k, tag)]:.3f} ms'
+                                         for k in fns))
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_full_width_stem(state_dict):
+    log('== phase 12: full-width BDNet f32, TF32 off, model.stem_pallas on')
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = build_model(state_dict, torch.float32, 'cuda',
+                            stem_pallas=True)
+        clips = random_clips(32, seed=1)
+        with torch.inference_mode():
+            dev1 = model(clips[:1])
+        cpu_model = build_model(state_dict, torch.float32, 'cpu',
+                                stem_pallas=True)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref1 = cpu_model(clips[:1].cpu())
+        log(f'CPU forward W=1 (plain pack): {time.perf_counter() - t0:.1f} '
+            's')
+        for key in OUT_KEYS:
+            got, want = dev1[key].float().cpu(), ref1[key].float()
+            assert got.shape == want.shape, (key, got.shape, want.shape)
+            assert torch.isfinite(got).all(), key
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3,
+                                       msg=lambda m: f'{key}: {m}')
+        log('flag on: card == CPU at W=1 (rtol 1e-3, atol 2e-3) on every '
+            'out key')
+        off = build_model(state_dict, torch.float32, 'cuda')
+        reset_counts()
+        with torch.inference_mode():
+            out_on = model(clips)
+        launches = (stem_pack_cuda.V1_LAUNCHES, stem_pack_cuda.V2_LAUNCHES)
+        with torch.inference_mode():
+            out_off = off(clips)
+        torch.cuda.synchronize()
+        assert launches == (0, 1), f'pack launches (v1, v2) {launches}'
+        worst = 0.0
+        for key in OUT_KEYS:
+            torch.testing.assert_close(out_on[key], out_off[key], rtol=1e-3,
+                                       atol=2e-3, msg=lambda m: f'{key}: {m}')
+            worst = max(worst, (out_on[key] - out_off[key]).abs().max()
+                        .item())
+        log(f'W=32: flag on == flag off (rtol 1e-3, atol 2e-3) on every out '
+            f'key, worst |diff| {worst:.3g}; pack launches per forward '
+            f'(v1, v2) {launches}')
+        del model, cpu_model, off, out_on, out_off, clips
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+        torch.cuda.empty_cache()
+
+
+def phase_end_to_end_stem(root, lengths, warm_off):
+    log('== phase 13: inference end to end with model.stem_pallas on '
+        '(tools.test.run_test, bf16)')
+    cfg = synthetic_test_config(root, **dict(STEM_CFG, **{
+        'testing.output_json': 'stem_pallas.json'}))
+    n_forwards = forwards_of(lengths)
+    n_windows = sum(len(window_offsets(t, FRAMES, 128))
+                    for t in lengths.values())
+    reset_counts()
+    path = run_test(cfg)
+    torch.cuda.synchronize()
+    counts = (stem_pack_cuda.V1_LAUNCHES, stem_pack_cuda.V2_LAUNCHES,
+              boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES)
+    n_props = check_detection_json(path, lengths)
+    assert counts == (0, n_forwards, 24 * n_forwards, 0), counts
+    log(f'{n_props} proposals; launches in this run: stem pack (v1, v2) '
+        f'{counts[:2]}, B1 {counts[2]} ({n_forwards} forwards)')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_test(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f'second (warm) run: wall {wall:.3f} s, {n_windows / wall:.2f} '
+        f'windows/s (flag off: {warm_off:.2f})')
+    return counts[1]
+
+
+def stem_grads(model, cfg, batch):
+    """Loss terms and gradients of one step (`loss_and_grads`), with the
+    stem module and the input and upstream gradient of its main-pass
+    call."""
+    stem = model.backbone._model.Conv3d_1a_7x7
+    seen = {}
+
+    def capture(mod, args, out):
+        if 'x' not in seen:
+            seen['x'] = args[0].detach()
+            out.register_hook(lambda g: seen.setdefault('g', g.detach()))
+    hook = stem.register_forward_hook(capture)
+    try:
+        terms, grads = loss_and_grads(model, cfg, batch)
+    finally:
+        hook.remove()
+    return terms, grads, (stem, seen['x'], seen['g'])
+
+
+def phase_train_paths_stem(cfg):
+    log('== phase 14: one full-width bs=1 train step, f32, TF32 off: '
+        'model.stem_pallas on vs off')
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    key = 'backbone._model.Conv3d_1a_7x7.conv3d.weight'
+    try:
+        batch = train_batch(1, FRAMES, CROP, 3, 'cuda')
+        on_cfg = load_config(CONFIG, overrides=STEM_CFG)
+        reset_counts()
+        terms_on, grads_on, _ = stem_grads(
+            train_model(on_cfg, FRAMES, CROP, 'cuda'), on_cfg, batch)
+        torch.cuda.synchronize()
+        launches = (stem_pack_cuda.V1_LAUNCHES, stem_pack_cuda.V2_LAUNCHES)
+        assert launches == (2, 0), f'pack launches (v1, v2) {launches}'
+        terms_off, grads_off, (stem, x, g) = stem_grads(
+            train_model(cfg, FRAMES, CROP, 'cuda'), cfg, batch)
+        for k in terms_off:
+            torch.testing.assert_close(terms_on[k], terms_off[k], rtol=1e-3,
+                                       atol=2e-3, msg=lambda m: f'{k}: {m}')
+        gn_on = global_norm(grads_on.values()).item()
+        gn_off = global_norm(grads_off.values()).item()
+        torch.testing.assert_close(torch.tensor(gn_on), torch.tensor(gn_off),
+                                   rtol=1e-3, atol=2e-3)
+        # over the whole step, the conv's other summation order flips
+        # near-tied max-pool and ReLU choices downstream (as any 1e-7
+        # change of the input does; tests/test_torch_stem_slice.py): the
+        # stem gradient is held in norm (6.5e-3 measured on an H100)
+        d = grads_on[key] - grads_off[key]
+        rel = (d.norm() / grads_off[key].norm()).item()
+        assert rel < 2e-2, rel
+        # on the same upstream gradient, the stem's own gradient
+        wg = []
+        for s2d in (True, False):
+            mod = copy.deepcopy(stem)
+            mod.space_to_depth = s2d
+            mod.zero_grad()
+            (mod(x) * g).sum().backward()
+            wg.append(mod.conv3d.weight.grad)
+        scale = wg[1].abs().max().item()
+        torch.testing.assert_close(wg[0], wg[1], rtol=1e-3,
+                                   atol=1e-3 * scale)
+        log(f'losses within rtol 1e-3 / atol 2e-3 (cost '
+            f'{terms_on["cost"].item():.6f} vs {terms_off["cost"].item():.6f}'
+            f'), global grad norm {gn_on:.6f} vs {gn_off:.6f}; stem '
+            f'gradient over the step |diff| / |off| {rel:.3g}, on the same '
+            f'upstream gradient within rtol 1e-3 (+1e-3 of its max, worst '
+            f'|diff| / max {(wg[0] - wg[1]).abs().max().item() / scale:.3g})'
+            f'; pack launches per step (v1, v2) {launches}')
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+        torch.cuda.empty_cache()
+
+
+def phase_train_end_to_end_stem(root, cfg_path):
+    log('== phase 15: training end to end (train.loop.train) with '
+        'model.stem_pallas on: 1 epoch of at most 2 steps')
+    ckdir = os.path.join(root, 'ckpt_stem_pallas')
+    cfg = load_config(cfg_path, overrides=dict(STEM_CFG, **{
+        'training.max_epoch': 1, 'training.checkpoint_path': ckdir}))
+    reset_counts()
+    state = train_loop(cfg, max_steps_per_epoch=2)
+    torch.cuda.synchronize()
+    counts = (stem_pack_cuda.V1_LAUNCHES, stem_pack_cuda.V2_LAUNCHES,
+              boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES)
+    steps = state.step
+    with open(os.path.join(ckdir, 'metrics.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    assert steps >= 1 and [r['step'] for r in recs] == list(
+        range(1, steps + 1)), (steps, recs)
+    for r in recs:
+        assert all(math.isfinite(v) for v in r.values()), r
+    assert counts == (2 * steps, 0, TRAIN_STEP_FWD * steps,
+                      TRAIN_STEP_BWD * steps), counts
+    log(f'{steps} steps, costs {[round(r["cost"], 4) for r in recs]}; '
+        f'launches in this run: stem pack (v1, v2) {counts[:2]} (2 per '
+        f'step: the main and SSL passes), B1 {counts[2]}, B2 {counts[3]}')
+    return counts[0]
 
 
 def main() -> int:
@@ -838,7 +1236,7 @@ def main() -> int:
     log(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
         f'CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}')
     t0 = time.perf_counter()
-    _build.build_all([boundary_pool_cuda.NAME])
+    _build.build_all([boundary_pool_cuda.NAME, stem_pack_cuda.NAME])
     log(f'kernels built in {time.perf_counter() - t0:.2f} s '
         f'(nvcc {_build.BUILD_SECONDS})')
     for name, text in _build.BUILD_LOG.items():
@@ -849,29 +1247,43 @@ def main() -> int:
         cfg, frame_num=FRAMES, crop_size=CROP, dtype=torch.float32), seed=0)
     state_dict = seeded.state_dict()
 
+    clips = random_clips(32, 0)
     calls = capture_pool_inputs(build_model(state_dict, torch.bfloat16,
-                                            'cuda'), random_clips(32, 0))
+                                            'cuda'), clips)
     assert len(calls) == 24, len(calls)
     max_err, tot = phase_kernel_vs_plain(calls)
     del calls
     torch.cuda.empty_cache()
     bwd_err, bwd_tot = phase_bwd_kernel_vs_plain(cfg)
     phase_train_paths(cfg)
+    pack_err, pack_times = phase_stem_pack_vs_plain(clips)
+    phase_stem_layouts(clips, state_dict[
+        'backbone._model.Conv3d_1a_7x7.conv3d.weight'].cuda())
+    del clips
+    torch.cuda.empty_cache()
 
     phase_full_width(state_dict)
+    phase_full_width_stem(state_dict)
+    phase_train_paths_stem(cfg)
     root = tempfile.mkdtemp(prefix='chip_smoke_')
     try:
-        launches, lengths = phase_end_to_end(state_dict, root)
-        train_fwd, train_bwd = phase_train_end_to_end(root)
+        launches, lengths, warm_off = phase_end_to_end(state_dict, root)
+        v2_launches = phase_end_to_end_stem(root, lengths, warm_off)
+        train_fwd, train_bwd, train_cfg = phase_train_end_to_end(root)
+        v1_launches = phase_train_end_to_end_stem(root, train_cfg)
         phase_train_speed(cfg)
         phase_throughput(state_dict, root, lengths)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     log(f'boundary_max_pool_fwd launches: {launches} in the inference run, '
-        f'{train_fwd} in the training run')
+        f'{train_fwd} in the training run; stem pack v2 {v2_launches} in '
+        f'the stem_pallas inference run, v1 {v1_launches} in the '
+        f'stem_pallas training run')
     log(f'total {time.perf_counter() - t_start:.1f} s')
     source = 'opental_torch/csrc/boundary_pool.cu'
+    v1 = pack_times[('v1', torch.float32, 1)]
+    v2 = pack_times[('v2', torch.bfloat16, 32)]
     print(json.dumps({'kernels': [{
         'name': 'boundary_max_pool_fwd', 'route': 'cuda', 'source': source,
         'replaces': 'opental_tpu/ops/boundary_pool_pallas.py:38',
@@ -884,7 +1296,21 @@ def main() -> int:
         'launches': train_bwd, 'max_abs_err': bwd_err,
         'ms': bwd_tot['ms'], 'plain_ms': bwd_tot['plain_ms'],
         'bound_ms': bwd_tot['bound_ms'], 'bound_by': 'bytes',
-        'library_ms': bwd_tot['library_ms']}]}), flush=True)
+        'library_ms': bwd_tot['library_ms']}, {
+        'name': 'stem_pack96', 'route': 'cuda',
+        'source': 'opental_torch/csrc/stem_pack.cu',
+        'replaces': 'opental_tpu/ops/stem_pack_pallas.py:44',
+        'launches': v1_launches, 'max_abs_err': pack_err['v1'],
+        'ms': v1['ms'], 'plain_ms': v1['plain_ms'],
+        'bound_ms': v1['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': None}, {
+        'name': 'stem_pack96_v2', 'route': 'cuda',
+        'source': 'opental_torch/csrc/stem_pack.cu',
+        'replaces': 'opental_tpu/ops/stem_pack_pallas.py:141',
+        'launches': v2_launches, 'max_abs_err': pack_err['v2'],
+        'ms': v2['ms'], 'plain_ms': v2['plain_ms'],
+        'bound_ms': v2['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': None}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -61,6 +61,9 @@ def build_model(cfg: Config, frame_num: Optional[int] = None,
         freeze_bn=bool(cfg.get_path('model.freeze_bn', True)),
         freeze_bn_affine=bool(cfg.get_path('model.freeze_bn_affine', True)),
         dropout=float(flags['dropout'] or 0.0),
+        # the packed space-to-depth stem, default off, as the JAX factory
+        # reads it (factory.py:60)
+        stem_pallas=bool(cfg.get_path('model.stem_pallas', False)),
         dtype=None if dtype == torch.float32 else dtype)
 
 

@@ -69,6 +69,8 @@ class BDNet(nn.Module):
     compute dtype of the convolutions (None = float32); parameters stay
     float32. `freeze_bn` / `freeze_bn_affine` are the reference's BN
     freeze modes; `dropout` acts on the class heads' inputs in train mode.
+    `stem_pallas` runs the I3D stem through the stem-pack kernel
+    (`model.stem_pallas`; the same weights and math either way).
     """
 
     def __init__(self, in_channels: int = 3, num_classes: int = 16,
@@ -76,6 +78,7 @@ class BDNet(nn.Module):
                  evidence: str = 'exp', frame_num: int = 256,
                  crop_size: int = 96, freeze_bn: bool = True,
                  freeze_bn_affine: bool = True, dropout: float = 0.0,
+                 stem_pallas: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_channels = in_channels
@@ -90,7 +93,7 @@ class BDNet(nn.Module):
         self.backbone = I3DBackbone(in_channels=in_channels,
                                     freeze_bn=freeze_bn,
                                     freeze_bn_affine=freeze_bn_affine,
-                                    dtype=dtype)
+                                    stem_pallas=stem_pallas, dtype=dtype)
         self.coarse_pyramid_detection = CoarsePyramid(
             num_classes=self.head_classes, frame_num=frame_num,
             crop_size=crop_size, os_head=os_head, dropout=dropout,

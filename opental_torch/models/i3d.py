@@ -4,7 +4,10 @@ Counterpart of `opental_tpu/models/i3d.py`; reference
 AFSD/common/i3d_backbone.py:90-342. Endpoint and branch names match the
 public I3D checkpoint keys ('Conv3d_1a_7x7.conv3d.weight',
 'Mixed_3b.b1b.bn.running_var', ...). The stem is a plain stride-2 Conv3d
-with TF-SAME pads; the JAX package's space-to-depth, temporal-fold and
+with TF-SAME pads, or with `stem_pallas` the JAX package's packed
+space-to-depth stem (`model.stem_pallas`: the stem-pack kernel and one 2D
+convolution, `models/layers.space_to_depth_conv3d`) on the same weight.
+The JAX package's XLA space-to-depth (pack24 + conv3d), temporal-fold and
 decomposed variants are TPU layouts of the same math and are not ported.
 """
 
@@ -77,7 +80,7 @@ class InceptionI3d(nn.Module):
     KEEP = ('Mixed_4f', 'Mixed_5c')
 
     def __init__(self, in_channels: int = 3, freeze_bn: bool = True,
-                 freeze_bn_affine: bool = True,
+                 freeze_bn_affine: bool = True, stem_pallas: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         # reference freeze modes (thumos14/BDNet.py:39-49): freeze_bn keeps
@@ -89,7 +92,8 @@ class InceptionI3d(nn.Module):
         ch = in_channels
         for ep in ENDPOINTS:
             if ep == 'Conv3d_1a_7x7':
-                mod = Unit3D(ch, 64, (7, 7, 7), (2, 2, 2), **kw)
+                mod = Unit3D(ch, 64, (7, 7, 7), (2, 2, 2),
+                             space_to_depth=stem_pallas, **kw)
                 ch = 64
             elif ep == 'Conv3d_2b_1x1':
                 mod = Unit3D(ch, 64, (1, 1, 1), **kw)

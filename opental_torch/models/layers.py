@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from opental_torch.ops import stem_pack
+
 GN_EPS = 1e-5   # torch GroupNorm default (reference nn.GroupNorm(32, C))
 BN_EPS = 1e-3   # reference BatchNorm3d(eps=0.001) in the I3D backbone
 
@@ -116,13 +118,49 @@ def _cast(x: torch.Tensor, dtype) -> torch.Tensor:
     return x if dtype is None or x.dtype == dtype else x.to(dtype)
 
 
+def space_to_depth_pad(x: torch.Tensor, kernel: Sequence[int]
+                       ) -> torch.Tensor:
+    """x (B, C, T, H, W) TF-SAME padded for a stride-2 conv, with one more
+    trailing zero where the padded extent would be odd (it meets only the
+    zero taps of the packed weight), as `opental_tpu/models/layers.py:
+    311-321` pads: the stem pack's input xp (B, Tp, Hp, Wp, C), a permuted
+    view of the padded tensor."""
+    pads: Tuple[int, ...] = ()
+    for size, k in reversed(list(zip(x.shape[2:], kernel))):
+        total = max(k - 2, 0) if size % 2 == 0 else max(k - 1, 0)
+        lo = total // 2
+        pads += (lo, total - lo + (size + total) % 2)
+    return F.pad(x, pads).permute(0, 2, 3, 4, 1)
+
+
+def space_to_depth_conv3d(x: torch.Tensor, weight: torch.Tensor,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """The stride-2 TF-SAME Conv3d of x (B, C, T, H, W) with weight (F, C,
+    kt, kh, kw), computed as the JAX package's `SpaceToDepthConv3d(
+    use_pallas=True)` does it (`opental_tpu/models/layers.py:298-324`):
+    cast to the compute dtype, pad (`space_to_depth_pad`), then pack and
+    convolve. The layout is the faster one on the H100 (chip_smoke.py
+    phase 11, PERF.md): without a weight gradient the channel-leading v2
+    pack and an NCHW conv (`ops/stem_pack.stem_conv_v2`, as the JAX model
+    calls it); when the weight takes a gradient, the channels-last v1 pack
+    (`stem_conv_v1`), whose weight gradient needs no transpose of z."""
+    x = _cast(x, dtype)
+    xp = space_to_depth_pad(x, weight.shape[2:])
+    w = _cast(weight, x.dtype)
+    if torch.is_grad_enabled() and w.requires_grad:
+        return stem_pack.stem_conv_v1(xp, w)
+    return stem_pack.stem_conv_v2(xp, w)
+
+
 class Unit3D(nn.Module):
     """Conv3d + optional frozen BN + optional ReLU, TF-SAME padded.
 
     padding: 'same', or 'spatial_valid' (time SAME, space unpadded: the
     pyramid's input convs). The I3D stem is this module with kernel 7 and
-    stride 2: the same math and weights as the JAX package's
-    space-to-depth stem.
+    stride 2, either as a plain strided Conv3d or, with space_to_depth,
+    through `space_to_depth_conv3d` (the stem-pack kernel and one 2D
+    convolution): the same math and the same `conv3d.weight`.
     """
 
     def __init__(self, in_channels: int, features: int,
@@ -131,12 +169,18 @@ class Unit3D(nn.Module):
                  use_bias: bool = False, use_batch_norm: bool = True,
                  activation: bool = True, bn_freeze_affine: bool = True,
                  bn_freeze_stats: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 space_to_depth: bool = False):
         super().__init__()
         self.kernel = _to_tuple(kernel, 3)
         self.stride = _to_tuple(stride, 3)
         if padding not in ('same', 'spatial_valid'):
             raise ValueError(padding)
+        if space_to_depth and (self.stride != (2, 2, 2) or use_bias
+                               or padding != 'same'):
+            raise ValueError('space_to_depth takes a stride-2 SAME conv '
+                             'without bias')
+        self.space_to_depth = space_to_depth
         self.padding = padding
         self.activation = activation
         self.dtype = dtype
@@ -148,6 +192,17 @@ class Unit3D(nn.Module):
                    if use_batch_norm else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.space_to_depth:
+            x = space_to_depth_conv3d(x, self.conv3d.weight, self.dtype)
+        else:
+            x = self._conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        if self.activation:
+            x = torch.relu(x)
+        return x
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
         t, h, w = x.shape[2:]
         if self.padding == 'same':
             pads = _f_pad((t, h, w), self.kernel, self.stride)
@@ -156,14 +211,9 @@ class Unit3D(nn.Module):
                                                   self.stride[0])
         x = F.pad(_cast(x, self.dtype), pads)
         bias = self.conv3d.bias
-        x = F.conv3d(x, _cast(self.conv3d.weight, self.dtype),
-                     None if bias is None else _cast(bias, self.dtype),
-                     self.stride)
-        if self.bn is not None:
-            x = self.bn(x)
-        if self.activation:
-            x = torch.relu(x)
-        return x
+        return F.conv3d(x, _cast(self.conv3d.weight, self.dtype),
+                        None if bias is None else _cast(bias, self.dtype),
+                        self.stride)
 
 
 def max_pool_3d_same(x: torch.Tensor, kernel: Sequence[int],

@@ -143,3 +143,13 @@ def test_training_modules_are_ported():
             'opental_torch.losses.multisegment',
             'opental_torch.data.prefetch',
             'opental_torch.utils.synthetic'} <= mods
+
+
+def test_stem_modules_are_ported():
+    """The stem-pack slice's modules are part of the port (and so of the
+    blocked-import check above), and the kernel source is in the
+    package."""
+    assert {'opental_torch.ops.stem_pack',
+            'opental_torch.ops.stem_pack_cuda'} <= set(port_modules())
+    assert os.path.isfile(os.path.join(ROOT, 'opental_torch', 'csrc',
+                                       'stem_pack.cu'))

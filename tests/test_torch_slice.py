@@ -7,7 +7,15 @@ pins the port's state_dict key names) and runs its default CLI mode
 (packed device ingest + fused device post) in float32;
 `opental_torch.tools.test.run_test(device='cpu')` runs the port. The
 detection JSONs must agree per proposal, and the JAX package's evaluator
-must give equal metrics on both.
+must give equal metrics on both. The `_stem_pallas` tests hold the
+port's run with `model.stem_pallas: true` (the packed stem, plain pack on
+the CPU) on the same dataset and checkpoint against the same JAX JSON:
+the JAX package's packed stem computes the same convolution as its
+default stem (its tests/test_stem_pack.py holds them together at atol
+1e-4), and tests/test_torch_stem_slice.py holds the port's flag-on BDNet
+against JAX's flag-on BDNet directly; a second JAX run with the flag (its
+Pallas pack in interpret mode) would add ~50 s of CPU to the tier-1 run
+and check nothing of the port those do not.
 """
 
 import json
@@ -29,10 +37,11 @@ from opental_torch.config import load_config
 from opental_torch.tools.test import run_test
 
 MIN_TOTAL = 100   # matched proposals required of the two test videos
+COMMON = {'model.compute_dtype': 'float32'}
 
 
 @pytest.fixture(scope='module')
-def slice_run(tmp_path_factory):
+def dataset(tmp_path_factory):
     root = str(tmp_path_factory.mktemp('slice') / 'synth')
     cfg_path = make_synthetic_dataset(root, clip_length=128, crop_size=32)
     cfg = load_config(cfg_path)
@@ -40,18 +49,36 @@ def slice_run(tmp_path_factory):
         factory.build_model(cfg, frame_num=128, crop_size=32), seed=0)
     ckpt = os.path.join(root, 'checkpoint-1.ckpt')
     torch.save(model.state_dict(), ckpt)
+    return root, cfg_path, ckpt
 
-    common = {'testing.checkpoint_path': ckpt,
-              'model.compute_dtype': 'float32'}
+
+def port_run(dataset, tag, **overrides):
+    root, cfg_path, ckpt = dataset
+    return run_test(load_config(cfg_path, overrides=dict(
+        COMMON, **{'testing.checkpoint_path': ckpt,
+                   'testing.output_json': f'port{tag}.json'}, **overrides)),
+        device='cpu')
+
+
+@pytest.fixture(scope='module')
+def slice_run(dataset):
+    """(root, JAX JSON path, port JSON path)."""
+    root, cfg_path, ckpt = dataset
     jax_path = jax_run_test(jax_load_config(cfg_path, overrides=dict(
-        common, **{'testing.output_json': 'jax.json'})))
-    port_path = run_test(load_config(cfg_path, overrides=dict(
-        common, **{'testing.output_json': 'port.json'})), device='cpu')
-    return root, jax_path, port_path
+        COMMON, **{'testing.checkpoint_path': ckpt,
+                   'testing.output_json': 'jax.json'})))
+    return root, jax_path, port_run(dataset, '')
 
 
-def test_detection_json_parity(slice_run):
-    _, jax_path, port_path = slice_run
+@pytest.fixture(scope='module')
+def slice_run_stem_pallas(dataset, slice_run):
+    root, jax_path, _ = slice_run
+    return root, jax_path, port_run(dataset, '_stem_pallas',
+                                    **{'model.stem_pallas': True})
+
+
+def check_json_parity(run):
+    _, jax_path, port_path = run
     with open(jax_path) as f:
         want = json.load(f)
     with open(port_path) as f:
@@ -60,8 +87,16 @@ def test_detection_json_parity(slice_run):
     assert_proposal_parity(want, got, min_total=MIN_TOTAL)
 
 
-def test_evaluator_metrics_equal(slice_run):
-    root, jax_path, port_path = slice_run
+def test_detection_json_parity(slice_run):
+    check_json_parity(slice_run)
+
+
+def test_detection_json_parity_stem_pallas(slice_run_stem_pallas):
+    check_json_parity(slice_run_stem_pallas)
+
+
+def check_metrics_equal(run):
+    root, jax_path, port_path = run
     anno = os.path.join(root, 'annotations')
 
     def metrics(pred):
@@ -79,3 +114,11 @@ def test_evaluator_metrics_equal(slice_run):
 
     np.testing.assert_allclose(metrics(port_path), metrics(jax_path),
                                atol=1e-6)
+
+
+def test_evaluator_metrics_equal(slice_run):
+    check_metrics_equal(slice_run)
+
+
+def test_evaluator_metrics_equal_stem_pallas(slice_run_stem_pallas):
+    check_metrics_equal(slice_run_stem_pallas)

@@ -1,0 +1,54 @@
+"""The stem-pack CUDA kernel (`opental_torch/csrc/stem_pack.cu`) against
+its plain PyTorch version, on the card. The kernel only moves values,
+so the two are equal exactly. This file imports neither JAX nor the JAX
+package, so that it also runs where only the port is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_stem_pack_cuda.py
+
+Without a card its tests skip (a CUDA kernel has no CPU mode).
+"""
+
+import pytest
+import torch
+
+from opental_torch.ops import stem_pack as tsp
+from opental_torch.ops import stem_pack_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_on_card(dtype):
+    """Both layouts, fp 1 and 2, contiguous and permuted inputs, Hp not a
+    multiple of 8 and Wp != Hp."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    g = torch.Generator(device='cuda').manual_seed(0)
+    for shape in ((2, 18, 12, 16, 3), (3, 22, 10, 14, 3)):
+        x = torch.randn(shape, generator=g, device='cuda').to(dtype)
+        view = x.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
+        for xp in (x, view):
+            assert torch.equal(stem_pack_cuda.stem_pack96(xp),
+                               tsp.stem_pack96_plain(xp))
+            for fp in (1, 2):
+                assert torch.equal(stem_pack_cuda.stem_pack96_v2(xp, fp=fp),
+                                   tsp.stem_pack96_v2_plain(xp, fp=fp))
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_cannot_take():
+    """A tensor that needs a gradient, an odd extent or an unsupported
+    dtype raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    before = (stem_pack_cuda.V1_LAUNCHES, stem_pack_cuda.V2_LAUNCHES)
+    x = torch.zeros((1, 14, 8, 8, 3), device='cuda')
+    with pytest.raises(ValueError, match='gradient'):
+        stem_pack_cuda.stem_pack96(x.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match='even'):
+        stem_pack_cuda.stem_pack96_v2(x[:, :, :7])
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        stem_pack_cuda.stem_pack96(x.half())
+    with pytest.raises(ValueError, match='fp'):
+        stem_pack_cuda.stem_pack96_v2(torch.zeros((1, 16, 8, 8, 3),
+                                                  device='cuda'), fp=2)
+    assert (stem_pack_cuda.V1_LAUNCHES, stem_pack_cuda.V2_LAUNCHES) == before

@@ -27,13 +27,15 @@ Phases (any failure ends the run with a non-zero exit):
      checkpoint, a resume), then run_test on the result; launch counts
      are read from this run only
   8. train step time at bs=1 and bs=8 (f32), peak memory, a profile
-  9. forward + decode windows/s at W=32 and W=128 (bf16), soft-NMS time
-     per video
+  9. forward + decode windows/s at W=32 and W=128 (bf16), with
+     model.stem_pallas off and on in turns, soft-NMS time per video
  10. the stem pack kernel (csrc/stem_pack.cu: B3, the v1 layout, and B4,
-     the v2 layout) vs its plain version, exactly, on the padded W=32
-     batch as the model hands it over, its contiguous copy and odd
-     shapes, f32 and bf16, fp 1 and 2; times of kernel, plain version and
-     bound at the main paths' inputs
+     the v2 layout) and the strided-copy yardstick vs the plain version,
+     exactly, through every plan of the kernel, on the padded W=32 batch
+     as the model hands it over, its contiguous copy and odd shapes
+     (`pack_cases`), f32 and bf16, fp 1 and 2; times of kernel, plain
+     version, yardstick and bound at the main paths' inputs (B4 at W=32
+     and W=128, B3 at bs=1 and bs=8), and of the tile plan beside B4
  11. the stem convolution at W=32: cuDNN's plain stride-2 Conv3d vs pack +
      F.conv2d in each layout (bf16; f32 with and without TF32), and the
      forward + weight gradient at bs=1 and bs=8
@@ -480,32 +482,38 @@ def profile_device(fn, label: str, top: int = 8) -> float:
 
 def phase_throughput(state_dict, root, lengths):
     log(f'== phase 9: forward + decode throughput (bf16) with '
-        f'model.stem_pallas off and on, soft-NMS time, on {card_line()}')
-    for stem in (False, True):
-        model = build_model(state_dict, torch.bfloat16, 'cuda',
-                            stem_pallas=stem)
-        pipe = InferencePipeline(model, clip_length=FRAMES, stride=128,
-                                 crop_size=CROP, top_k=5000, use_edl=True,
-                                 os_head=True, device='cuda')
-        for w in (32, 128):
-            clips = random_clips(w, seed=2)
-            pipe.forward_decode(clips)
+        f'model.stem_pallas off and on, in turns, soft-NMS time, on '
+        f'{card_line()}')
+    pipes = {stem: InferencePipeline(
+        build_model(state_dict, torch.bfloat16, 'cuda', stem_pallas=stem),
+        clip_length=FRAMES, stride=128, crop_size=CROP, top_k=5000,
+        use_edl=True, os_head=True, device='cuda') for stem in (False, True)}
+    for w in (32, 128):
+        clips = random_clips(w, seed=2)
+        for stem in (False, True):
+            pipes[stem].forward_decode(clips)
+        ms, mem = {False: 0.0, True: 0.0}, {False: 0.0, True: 0.0}
+        # off, on, on, off: the two drift alike with the card and host
+        for stem in (False, True, True, False):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            ms = time_ms(lambda: pipe.forward_decode(clips), reps=5,
-                         warmup=2)
-            mem = torch.cuda.max_memory_allocated() / 2**30
-            log(f'stem_pallas {stem}: forward+decode W={w}: {ms:.2f} ms, '
-                f'{w / ms * 1e3:.1f} windows/s, peak memory {mem:.2f} GiB')
-            if w == 32:
-                profile_device(lambda: pipe.forward_decode(clips),
+            ms[stem] += time_ms(lambda: pipes[stem].forward_decode(clips),
+                                reps=3, warmup=0) / 2
+            mem[stem] = max(mem[stem],
+                            torch.cuda.max_memory_allocated() / 2**30)
+        for stem in (False, True):
+            log(f'stem_pallas {stem}: forward+decode W={w}: '
+                f'{ms[stem]:.2f} ms, {w / ms[stem] * 1e3:.1f} windows/s, '
+                f'peak memory {mem[stem]:.2f} GiB (both models resident)')
+        if w == 32:
+            for stem in (False, True):
+                profile_device(lambda: pipes[stem].forward_decode(clips),
                                f'forward+decode W=32 stem_pallas {stem}')
-            del clips
-        if not stem:
-            off_pipe = pipe
-        del model, pipe
+        del clips
         torch.cuda.empty_cache()
-    pipe = off_pipe
+    pipe = pipes[False]
+    del pipes[True]
+    torch.cuda.empty_cache()
     nms_ms = []
     for name, t in lengths.items():
         data = np.load(os.path.join(root, 'test_npy', name + '.npy'))
@@ -927,57 +935,117 @@ PACKS = {   # name: (kernel, plain version, keyword arguments)
 }
 
 
-def phase_stem_pack_vs_plain(clips):
-    log('== phase 10: stem pack kernel (B3 v1, B4 v2) vs plain version')
+def pack_cases(clips):
+    """(label, xp) inputs of phase 10: the W=32 batch as the model hands
+    it over (the frame plan's bulk copies) and its contiguous copy
+    (strided loads); a plane too large for shared memory in one piece
+    (Hp = Wp = 230, in bands of rows); t_out = 1 (every frame feeds one
+    destination); a first plane off 16-byte alignment (storage offset 1);
+    odd h2 * wq (runs that start off 16-byte alignment); Hp not a
+    multiple of 8 and Wp != Hp; f32 and bf16."""
     g = torch.Generator(device='cuda').manual_seed(11)
+
+    def view(shape, dtype, offset=0):    # (B, Tp, Hp, Wp, C) of BCTHW
+        b, t, h, w, c = shape
+        buf = torch.randn(b * c * t * h * w + offset, generator=g,
+                          device='cuda').to(dtype)
+        return buf[offset:].view(b, c, t, h, w).permute(0, 2, 3, 4, 1)
+
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         xp = layers.space_to_depth_pad(clips.to(dtype), STEM_KERNEL)
-        odd = torch.randn((2, 3, 18, 26, 38), generator=g, device='cuda')
+        big = view((2, 10, 230, 230, 3), dtype)
         cases += [(f'W=32 model view {dtype}', xp),
                   (f'W=32 contiguous {dtype}', xp.contiguous()),
+                  (f'(2, 10, 230, 230, 3) view {dtype}', big),
+                  (f'(2, 10, 230, 230, 3) contiguous {dtype}',
+                   big.contiguous()),
+                  (f'(2, 8, 10, 14, 3) t_out=1 view {dtype}',
+                   view((2, 8, 10, 14, 3), dtype)),
+                  (f'(3, 22, 10, 14, 3) view at offset 1 {dtype}',
+                   view((3, 22, 10, 14, 3), dtype, 1)),
                   (f'(3, 22, 10, 14, 3) {dtype}', torch.randn(
                       (3, 22, 10, 14, 3), generator=g, device='cuda').to(
                       dtype)),
                   (f'(2, 18, 26, 38, 3) view {dtype}',
-                   odd.to(dtype).permute(0, 2, 3, 4, 1))]
+                   view((2, 18, 26, 38, 3), dtype))]
+    return cases
+
+
+def phase_stem_pack_vs_plain(clips):
+    log('== phase 10: stem pack kernel (B3 v1, B4 v2) vs plain version')
+    cases = pack_cases(clips)
     err = {'v1': 0.0, 'v2': 0.0}
+    plans = set()
     for label, xp in cases:
         for name, (kernel, plain, kw) in PACKS.items():
+            if (xp.shape[1] // 2 - 3) % kw.get('fp', 1):
+                continue
+            plans.add(stem_pack_cuda.plan(xp, kw.get('fp', 1),
+                                          int(name != 'v1')))
             got, want = kernel(xp, **kw), plain(xp, **kw)
             diff = (got.float() - want.float()).abs().max().item()
             err[name[:2]] = max(err[name[:2]], diff)
             if not torch.equal(got, want):
                 raise AssertionError(f'{name} kernel != plain on {label}: '
                                      f'max |diff| {diff}')
-            del got, want
-    log(f'kernel == plain exactly (torch.equal) on {len(cases)} inputs x '
-        f'{{{", ".join(PACKS)}}}: the W=32 batch as the model hands it '
-        f'over (a permuted view), its contiguous copy, Hp not a multiple '
-        f'of 8, Wp != Hp, f32 and bf16; max_abs_err {err}')
+            lib = stem_pack.stem_pack_strided(xp, layout=name[:2], **kw)
+            if not torch.equal(lib, want):
+                raise AssertionError(f'{name} strided copy != plain on '
+                                     f'{label}')
+            del got, want, lib
+    assert plans == set(stem_pack_cuda.PATHS), plans
+    log(f'kernel == plain == strided copy exactly (torch.equal) on '
+        f'{len(cases)} inputs x {{{", ".join(PACKS)}}} (where t_out '
+        f'splits into fp), through every plan {sorted(plans)}; '
+        f'max_abs_err {err}')
+    del cases
+    torch.cuda.empty_cache()
 
     # times at the main paths' inputs: inference packs the W-window
     # batch in bf16 (v2), training the bs=1 or bs=8 batch in f32 (v1)
     times = {}
-    log('per call, device ms: kernel, plain, bound (xp + z bytes / '
-        '3.35 TB/s); xp (B, 262, 102, 102, 3) as the model hands it over')
+    log(f'per call, device ms: kernel, plain, library (the strided view\'s '
+        f'.contiguous()), bound (xp + z bytes / 3.35 TB/s), and for v2 the '
+        f'tile plan (v1\'s design) on the same input; xp (B, 262, 102, '
+        f'102, 3) as the model hands it over; {card_line()}')
     for name, dtype, b in (('v2 fp=1', torch.bfloat16, 32),
+                           ('v2 fp=1', torch.bfloat16, 128),
                            ('v1', torch.bfloat16, 32),
                            ('v2 fp=1', torch.float32, 32),
                            ('v1', torch.float32, 32),
                            ('v1', torch.float32, 1),
                            ('v1', torch.float32, 8)):
-        xp = layers.space_to_depth_pad(clips[:b].to(dtype), STEM_KERNEL)
+        src = clips if b <= len(clips) else random_clips(b, seed=3)
+        xp = layers.space_to_depth_pad(src[:b].to(dtype), STEM_KERNEL)
+        del src
         kernel, plain, kw = PACKS[name]
         r = {'ms': device_ms(lambda: kernel(xp, **kw), reps=20),
              'plain_ms': device_ms(lambda: plain(xp, **kw), reps=3),
+             'library_ms': device_ms(lambda: stem_pack.stem_pack_strided(
+                 xp, layout=name[:2], **kw), reps=10),
              'bound_ms': pack_bound_ms(xp)}
+        line = (f'  {name:8s} {str(dtype):15s} B={b:<3d} kernel '
+                f'{r["ms"]:.4f}  plain {r["plain_ms"]:.4f}  library '
+                f'{r["library_ms"]:.4f}  bound {r["bound_ms"]:.4f}  '
+                f'bound/kernel {r["bound_ms"] / r["ms"]:.3f}')
+        if name != 'v1':
+            # the tile plan (v1's design) on the same input, and the card's
+            # own rate for a contiguous copy of z (read z, write z) as the
+            # ceiling
+            r['tile_ms'] = device_ms(lambda: stem_pack_cuda._launch(
+                xp, 4, 1, 1, path='tile'), reps=20)
+            z = kernel(xp, **kw)
+            clone_ms = device_ms(z.clone, reps=10)
+            rate = r['bound_ms'] * HBM_BYTES_PER_S / 1e12 / r['ms']
+            line += (f'  tile plan {r["tile_ms"]:.4f}  z.clone() '
+                     f'{clone_ms:.4f} ({2 * z.nbytes / clone_ms / 1e9:.3f} '
+                     f'TB/s; kernel {rate:.3f} TB/s)')
+            del z
         times[(name[:2], dtype, b)] = r
-        log(f'  {name:8s} {str(dtype):15s} B={b:<3d} kernel {r["ms"]:.4f}  '
-            f'plain {r["plain_ms"]:.4f}  bound {r["bound_ms"]:.4f}  '
-            f'bound/kernel {r["bound_ms"] / r["ms"]:.3f}')
-    del cases
-    torch.cuda.empty_cache()
+        log(line)
+        del xp
+        torch.cuda.empty_cache()
     return err, times
 
 
@@ -1303,14 +1371,14 @@ def main() -> int:
         'launches': v1_launches, 'max_abs_err': pack_err['v1'],
         'ms': v1['ms'], 'plain_ms': v1['plain_ms'],
         'bound_ms': v1['bound_ms'], 'bound_by': 'bytes',
-        'library_ms': None}, {
+        'library_ms': v1['library_ms']}, {
         'name': 'stem_pack96_v2', 'route': 'cuda',
         'source': 'opental_torch/csrc/stem_pack.cu',
         'replaces': 'opental_tpu/ops/stem_pack_pallas.py:141',
         'launches': v2_launches, 'max_abs_err': pack_err['v2'],
         'ms': v2['ms'], 'plain_ms': v2['plain_ms'],
         'bound_ms': v2['bound_ms'], 'bound_by': 'bytes',
-        'library_ms': None}]}), flush=True)
+        'library_ms': v2['library_ms']}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

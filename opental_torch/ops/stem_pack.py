@@ -23,6 +23,9 @@ the first Hp/2 rows). The public functions take xp in the JAX layout, and
 accept a permuted view of the model's (B, C, Tp, Hp, Wp) tensor as it
 is: the kernel reads through the strides it is given.
 
+`stem_pack_strided` is the same function as one strided copy, the
+library yardstick that chip_smoke.py times beside the kernel.
+
 `stem_pack96` / `stem_pack96_v2` are the ops the model calls: a CPU
 tensor goes to the plain version, a CUDA tensor to the hand-written
 kernel (`stem_pack_cuda`) or a raise. `force_plain` exists for the tests
@@ -76,6 +79,30 @@ def stem_pack96_v2_plain(xp: torch.Tensor, a_t: int = 4, fp: int = 1
         raise ValueError(f't_out {t_out} does not split into fp {fp}')
     z = z.reshape(b, t_out // fp, fp, h2, wq, ch).permute(0, 1, 5, 3, 2, 4)
     return z.reshape(b, t_out // fp, ch, h2, fp * wq)
+
+
+def stem_pack_strided(xp: torch.Tensor, a_t: int = 4, fp: int = 1,
+                      layout: str = 'v2') -> torch.Tensor:
+    """The pack as one PyTorch copy: it is linear in (b, u, p, q, at, bt,
+    bi, bj, c), so z is a strided view of xp, and `.contiguous()` of that
+    view plus a reshape computes v1 (`layout='v1'`, fp 1) or v2. Only
+    chip_smoke.py calls it, to time the library copy beside the kernel;
+    the model never does."""
+    b, t_out, h2, wq, c = pack_shape(xp, a_t)
+    sb, st, sh, sw, sc = xp.stride()
+    if layout == 'v1' and fp == 1:
+        size = (b, t_out, h2, wq, a_t, 2, 2, 2, c)
+        stride = (sb, 2 * st, 2 * sh, 2 * sw, 2 * st, st, sh, sw, sc)
+        shape = (b, t_out, h2, wq, 8 * a_t * c)
+    elif layout == 'v2' and fp >= 1 and t_out % fp == 0:
+        size = (b, t_out // fp, a_t, 2, 2, 2, c, h2, fp, wq)
+        stride = (sb, 2 * fp * st, 2 * st, st, sh, sw, sc, 2 * sh, 2 * st,
+                  2 * sw)
+        shape = (b, t_out // fp, 8 * a_t * c, h2, fp * wq)
+    else:
+        raise ValueError(f'bad layout {layout!r} / fp {fp} for t_out {t_out}')
+    return xp.as_strided(size, stride, xp.storage_offset()).contiguous(
+        ).reshape(shape)
 
 
 _FORCE_PLAIN = False

@@ -5,7 +5,8 @@ layout replaces the TPU kernel `opental_tpu/ops/stem_pack_pallas.py:44`
 
 The library builds at the first call (`_build.load`), never at import.
 `V1_LAUNCHES` and `V2_LAUNCHES` count the launches of each layout: each
-grows by one where its kernel is launched and nowhere else.
+grows by one where its kernel is launched and nowhere else. `plan`
+picks the kernel's design from the layout, fp and xp's strides.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ V2_LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns = {}
+PATHS = ('tile', 'frame_strided', 'frame_bulk')   # the C entry's `path`
 
 
 def _entry():
@@ -29,14 +31,28 @@ def _entry():
     if fn is None:
         fn = _build.load(NAME).stem_pack96
         fn.argtypes = [_P, _P, _I, _I, _I, _I, _I,
-                       ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, _I, _P]
+                       ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, _I, _I,
+                       _P]
         fn.restype = ctypes.c_int
         _fns[NAME] = fn
     return fn
 
 
-def _launch(xp: torch.Tensor, a_t: int, fp: int, layout: int
-            ) -> torch.Tensor:
+def plan(xp: torch.Tensor, fp: int, layout: int) -> str:
+    """Which design of `csrc/stem_pack.cu` packs xp: the frame plan for
+    v2 at fp = 1 (one block per band of rows of one input plane), with
+    one bulk copy per band where the band is contiguous (unit W stride,
+    packed rows: the model's permuted view) and strided loads otherwise;
+    the tile plan for v1 and for v2 at fp > 1."""
+    if layout == 0 or fp != 1:
+        return 'tile'
+    if xp.stride(3) == 1 and xp.stride(2) == xp.shape[3]:
+        return 'frame_bulk'
+    return 'frame_strided'
+
+
+def _launch(xp: torch.Tensor, a_t: int, fp: int, layout: int,
+            path: str = '') -> torch.Tensor:
     global V1_LAUNCHES, V2_LAUNCHES
     name = 'stem_pack96_v2' if layout else 'stem_pack96'
     if not xp.is_cuda:
@@ -66,9 +82,10 @@ def _launch(xp: torch.Tensor, a_t: int, fp: int, layout: int
     strides = (ctypes.c_longlong * 5)(*xp.stride())
     fn = _entry()
     stream = torch.cuda.current_stream(xp.device).cuda_stream
+    path = PATHS.index(path or plan(xp, fp, layout))
     with torch.cuda.device(xp.device):
         err = fn(xp.data_ptr(), z.data_ptr(), b, tp, hp, wp, c, strides,
-                 a_t, fp, layout, _DTYPES[xp.dtype], stream)
+                 a_t, fp, layout, _DTYPES[xp.dtype], path, stream)
     if layout == 0:
         V1_LAUNCHES += 1
     else:

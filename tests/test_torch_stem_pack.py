@@ -229,3 +229,53 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         stem_pack_cuda.stem_pack96_v2(xp)
     assert not stem_pack_cuda._fns
+
+
+def _bcthw_view(shape, seed):
+    """(B, Tp, Hp, Wp, C) as the model hands it over: a permuted view of
+    a contiguous (B, C, Tp, Hp, Wp) tensor."""
+    b, t, h, w, c = shape
+    x = np.random.RandomState(seed).randn(b, c, t, h, w).astype(np.float32)
+    return _t(x).permute(0, 2, 3, 4, 1)
+
+
+@pytest.mark.parametrize('contiguous', [False, True])
+@pytest.mark.parametrize('layout,fp', [('v1', 1), ('v2', 1), ('v2', 2)])
+def test_strided_copy_equals_plain(layout, fp, contiguous):
+    """The library yardstick (one `.contiguous()` of a strided view of
+    xp) is the pack, exactly, on the model's permuted view and on a
+    contiguous input."""
+    xp = _bcthw_view((2, 18, 12, 16, 3), 5)
+    if contiguous:
+        xp = xp.contiguous()
+    got = tsp.stem_pack_strided(xp, fp=fp, layout=layout)
+    want = (tsp.stem_pack96_plain(xp) if layout == 'v1'
+            else tsp.stem_pack96_v2_plain(xp, fp=fp))
+    assert got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+def test_strided_copy_rejects_what_it_cannot_pack():
+    xp = torch.zeros(1, 16, 8, 8, 3)                         # t_out 5
+    with pytest.raises(ValueError, match='fp'):
+        tsp.stem_pack_strided(xp, fp=2)
+    with pytest.raises(ValueError, match='layout'):
+        tsp.stem_pack_strided(xp, fp=2, layout='v1')
+
+
+@pytest.mark.parametrize('case,fp,layout,want', [
+    ('model view', 1, 1, 'frame_bulk'),
+    ('contiguous', 1, 1, 'frame_strided'),
+    ('W sliced', 1, 1, 'frame_strided'),
+    ('model view', 2, 1, 'tile'),
+    ('model view', 1, 0, 'tile'),
+])
+def test_kernel_plan_follows_layout_and_strides(case, fp, layout, want):
+    """The wrapper's choice of design: bulk copies only where a band of
+    rows of one plane is contiguous (unit W stride, packed rows)."""
+    xp = _bcthw_view((1, 14, 8, 10, 3), 0)
+    if case == 'contiguous':
+        xp = xp.contiguous()
+    elif case == 'W sliced':
+        xp = _bcthw_view((1, 14, 8, 12, 3), 0)[:, :, :, 1:11]
+    assert stem_pack_cuda.plan(xp, fp, layout) == want

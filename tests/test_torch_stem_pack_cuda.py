@@ -34,6 +34,44 @@ def test_kernel_matches_plain_on_card(dtype):
                                    tsp.stem_pack96_v2_plain(xp, fp=fp))
 
 
+# (B, Tp, Hp, Wp, C), storage offset of the (B, C, Tp, Hp, Wp) tensor
+FRAME_CASES = {
+    'one band': ((2, 18, 12, 16, 3), 0),
+    'plane in bands (Hp = Wp = 230)': ((2, 10, 230, 230, 3), 0),
+    't_out = 1': ((2, 8, 10, 14, 3), 0),
+    'odd plane, offset 1': ((3, 22, 10, 14, 3), 1),
+    'B > 1, Wp != Hp': ((4, 12, 26, 38, 3), 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(FRAME_CASES))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_frame_plan_matches_plain_on_card(dtype, case):
+    """Every path of B4's frame plan (bulk copies on the model's view,
+    strided loads on a contiguous input), and the tile plan of v1 and
+    fp = 2, on the same inputs: planes too large for shared memory in
+    one piece, the first and last frames (fewer than a_t destinations),
+    runs and input planes that start off 16-byte alignment, B > 1."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    (b, t, h, w, c), offset = FRAME_CASES[case]
+    g = torch.Generator(device='cuda').manual_seed(1)
+    buf = torch.randn(b * c * t * h * w + offset, generator=g,
+                      device='cuda').to(dtype)
+    view = buf[offset:].view(b, c, t, h, w).permute(0, 2, 3, 4, 1)
+    want = tsp.stem_pack96_v2_plain(view)
+    for xp, path in ((view, 'frame_bulk'),
+                     (view.contiguous(), 'frame_strided')):
+        assert stem_pack_cuda.plan(xp, 1, 1) == path
+        assert torch.equal(stem_pack_cuda.stem_pack96_v2(xp), want)
+        if (t // 2 - 3) % 2 == 0:
+            assert torch.equal(stem_pack_cuda.stem_pack96_v2(xp, fp=2),
+                               tsp.stem_pack96_v2_plain(xp, fp=2))
+        assert torch.equal(stem_pack_cuda.stem_pack96(xp),
+                           tsp.stem_pack96_plain(xp))
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take():
     """A tensor that needs a gradient, an odd extent or an unsupported

@@ -5,19 +5,22 @@
 
 Phases (any failure ends the run with a non-zero exit):
   1. card, versions; build the CUDA kernels from csrc/ (nvcc, in parallel)
-  2. B1, the pool forward, vs its plain PyTorch version on the card, at
-     the inputs inference gives it (captured from a full-width forward at
-     W=32) and on adversarial inputs, in float32 and bfloat16; times of
-     kernel, plain version and bound per shape
-  3. B2, the pool backward, vs its plain version, on the (x, segments, g)
-     of the 27 backward calls of one full-width train step and on tied
-     inputs, in float32 and bfloat16; times of kernel, plain version,
-     scatter_add_ and bound per call
+  2. B1, the grouped pool forward, vs its plain PyTorch version on the
+     card, at the inputs inference gives it (the 2 calls of a full-width
+     forward at W=32) and on per-level adversarial segments, in float32
+     and bfloat16; its time per forward in turns with the per-level
+     route (the same kernel through its one-level entry, 24 calls), the
+     plain version, the group bound and the summed per-call bound
+  3. B2, the grouped pool backward, vs its plain version, on the (x,
+     segments, g) of the 4 backward calls of one full-width train step
+     and on tied inputs, in float32 and bfloat16; its time per step in
+     turns with the per-level route (27 calls), the plain version,
+     scatter_add_ and the bound
   4. one full-width bs=1 train step of the OpenTAL-final model in
-     float32, TF32 off: the kernel path vs the plain path (31 forward and
-     27 backward launches), and the card vs the CPU
+     float32, TF32 off: the kernel path vs the plain path (4 forward and
+     4 backward launches), and the card vs the CPU
   5. the full-width BDNet (256 x 96 x 96, seeded weights) in float32 with
-     TF32 off: card vs CPU at W=1, kernel path vs plain path at W=32, 24
+     TF32 off: card vs CPU at W=1, kernel path vs plain path at W=32, 2
      kernel launches per forward
   6. inference end to end: synthetic uint8 videos through
      opental_torch.tools.test.run_test at the default bf16, to a
@@ -166,17 +169,54 @@ def device_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def pool_bound_ms(x: torch.Tensor, seg: torch.Tensor) -> float:
-    """Least time for one pool call: the x rows its windows cover (each
-    read once), the segments and the output, over the memory rate."""
+def pool_bound_ms(x: torch.Tensor, seg: torch.Tensor, levels=None,
+                  argmax: bool = False) -> float:
+    """Least time for one pool call: every x row that a window of its
+    level covers, read once, the segments and the output (and the int32
+    argmax), over the memory rate. Summed over the per-level calls of the
+    per-level route it is the per-call bound; for a grouped call it is the
+    group bound."""
     b, t_len, c = x.shape
-    l, r = boundary_pool.clamp_windows(seg, t_len)          # (B, K, 2)
-    pos = torch.arange(t_len, device=x.device)
-    cover = ((pos >= l[..., None]) & (pos <= r[..., None])).any(dim=1)
-    rows = int(cover.sum())                                 # (b, half, t)
+    levels = boundary_pool_cuda.check_levels(levels, t_len, seg.shape[1])
+    rows, x_off, k_off = 0, 0, 0
+    for t, k in levels:
+        if k:
+            l, r = boundary_pool.clamp_windows(seg[:, k_off:k_off + k], t)
+            pos = torch.arange(t, device=x.device)
+            cover = ((pos >= l[..., None]) & (pos <= r[..., None])).any(
+                dim=1)                                      # (b, half, t)
+            rows += int(cover.sum())
+        x_off, k_off = x_off + t, k_off + k
+    out_bytes = x.element_size() + (4 if argmax else 0)
     nbytes = (rows * (c // 2) * x.element_size() + seg.numel() * 4
-              + b * seg.shape[1] * c * x.element_size())
+              + b * seg.shape[1] * c * out_bytes)
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+POOLS_PER_FORWARD = 2     # the frame-level pool, the packed lr pool
+ROI_LEVELS = ((FRAMES, sum(pyramid.level_sizes(FRAMES))),)
+
+
+def per_level_route(x, seg, levels, g=None):
+    """The per-level calls that the model made before its pools were
+    grouped, for one grouped call, as
+    (x, segments, g): the frame-level pool of all 6 levels as 6 calls for
+    each of the 2 branches (the same g slice for both), a packed call as
+    one call per level, any other call as itself."""
+    if levels == ROI_LEVELS:
+        pieces, k0 = [], 0
+        for t in pyramid.level_sizes(FRAMES):
+            pieces.append((0, FRAMES, k0, t))
+            k0 += t
+        pieces = pieces * 2
+    else:
+        pieces, x0, k0 = [], 0, 0
+        for t, k in levels:
+            pieces.append((x0, t, k0, k))
+            x0, k0 = x0 + t, k0 + k
+    return [(x[:, x0:x0 + t].contiguous(), seg[:, k0:k0 + k].contiguous(),
+             None if g is None else g[:, k0:k0 + k].contiguous())
+            for x0, t, k0, k in pieces]
 
 
 def random_clips(n: int, seed: int) -> torch.Tensor:
@@ -198,20 +238,20 @@ def build_model(state_dict, dtype, device, stem_pallas=False) -> BDNet:
 
 
 def capture_pool_inputs(model: BDNet, clips: torch.Tensor):
-    """(x, segments) of every boundary-pool call of one forward."""
+    """(x, segments, levels) of every boundary-pool call of one forward."""
     calls = []
-    real = pyramid.boundary_max_pool
+    real = pyramid.boundary_max_pool_segmented
 
-    def recording(x, seg):
-        calls.append((x.clone(), seg.clone()))
-        return real(x, seg)
+    def recording(x, seg, levels):
+        calls.append((x.clone(), seg.clone(), levels))
+        return real(x, seg, levels)
 
-    pyramid.boundary_max_pool = recording
+    pyramid.boundary_max_pool_segmented = recording
     try:
         with torch.inference_mode():
             model(clips)
     finally:
-        pyramid.boundary_max_pool = real
+        pyramid.boundary_max_pool_segmented = real
     return calls
 
 
@@ -227,56 +267,86 @@ def adversarial_segments(b: int, k: int, t_len: int, seed: int
     return torch.from_numpy(seg.astype(np.float32)).cuda()
 
 
+def adversarial_levels(b: int, levels, seed: int) -> torch.Tensor:
+    """Adversarial segments for every level of a table, each in its own
+    level's units: windows that reach past the level on either side (into
+    its neighbours on the packed axis), wholly outside it, r < l."""
+    return torch.cat([adversarial_segments(b, k, t, seed + i)
+                      for i, (t, k) in enumerate(levels)], dim=1)
+
+
+def in_turns(fns: dict, reps: int, measure) -> dict:
+    """measure(fn, reps) of each fn in the order a, b, b, a (the two
+    drift alike with the card), averaged."""
+    out = {name: 0.0 for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        out[name] += measure(fns[name], reps) / 2
+    return out
+
+
 def phase_kernel_vs_plain(calls):
-    log('== phase 2: boundary_max_pool_fwd vs plain version on the card')
+    log('== phase 2: grouped boundary_max_pool_fwd (B1) vs plain version '
+        'on the card')
     max_err = 0.0
-    for i, (x, seg) in enumerate(calls):
+    for i, (x, seg, levels) in enumerate(calls):
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype).contiguous()
-            for segs in (seg, adversarial_segments(
-                    x.shape[0], seg.shape[1], x.shape[1], i)):
-                got, _ = boundary_pool_cuda.boundary_max_pool_fwd(xd, segs)
+            for segs in (seg, adversarial_levels(x.shape[0], levels,
+                                                 10 * i)):
+                got, _ = boundary_pool_cuda.boundary_max_pool_fwd(
+                    xd, segs, levels=levels)
                 with boundary_pool.force_plain():
-                    want = boundary_pool.boundary_max_pool(xd, segs)
+                    want = boundary_pool.boundary_max_pool_segmented(
+                        xd, segs, levels)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 max_err = max(max_err, err)
                 if not torch.equal(got, want):
                     raise AssertionError(f'kernel != plain: call {i} '
                                          f'{tuple(x.shape)} {dtype} err {err}')
-    log(f'kernel == plain exactly on {len(calls)} main-path calls x '
-        f'(f32, bf16) x (captured, adversarial) segments; max_abs_err '
-        f'{max_err}')
+    log(f'grouped kernel == plain exactly on the {len(calls)} main-path '
+        f'calls x (f32, bf16) x (captured, per-level adversarial) segments; '
+        f'max_abs_err {max_err}')
 
-    # time: the 24 calls of one forward (12 shapes, 2 branches)
-    rows = []
-    tot = {'ms': 0.0, 'call_ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0}
-    for i, (x, seg) in enumerate(calls):
-        def kernel():
-            boundary_pool_cuda.boundary_max_pool_fwd(x, seg)
+    # time: the 2 grouped calls of one forward against the per-level
+    # route, the same kernel through its one-level entry, 24 calls
+    route = [c for x, seg, levels in calls
+             for c in per_level_route(x, seg, levels)]
+    assert len(route) == 24, len(route)
 
-        def plain():
-            with boundary_pool.force_plain():
-                boundary_pool.boundary_max_pool(x, seg)
+    def run(cs):
+        return lambda: [boundary_pool_cuda.boundary_max_pool_fwd(
+            x, seg, levels=levels) for x, seg, levels in cs]
 
-        r = {'ms': device_ms(kernel, reps=50),
-             'call_ms': time_ms(kernel, reps=50),
-             'plain_ms': device_ms(plain, reps=5),
-             'bound_ms': pool_bound_ms(x, seg)}
-        for key in tot:
-            tot[key] += r[key]
-        rows.append((i, tuple(x.shape), seg.shape[1], r))
-    log('device times (ms): kernel, kernel per call with host overhead, '
-        'plain version, bound (bytes / 3.35 TB/s)')
-    log('call  x(B,T,C)           K    kernel   k+host     plain     '
-        'bound  bound/kernel')
-    for i, shape, k, r in rows:
-        log(f'{i:4d}  {str(shape):18s} {k:3d}  {r["ms"]:.5f}  '
-            f'{r["call_ms"]:.5f}  {r["plain_ms"]:.5f}  {r["bound_ms"]:.6f}  '
-            f'{r["bound_ms"] / r["ms"]:.3f}')
-    log(f'one forward (24 calls, W=32, f32 inputs): kernel {tot["ms"]} ms '
-        f'({tot["call_ms"]} ms with host overhead), plain '
-        f'{tot["plain_ms"]} ms, bound {tot["bound_ms"]} ms')
+    grouped = run(calls)
+    per_level = run([(x, seg, None) for x, seg, _ in route])
+    dev = in_turns({'route': per_level, 'grouped': grouped}, 20, device_ms)
+    host = in_turns({'route': per_level, 'grouped': grouped}, 20, time_ms)
+
+    def plain():
+        with boundary_pool.force_plain():
+            for x, seg, levels in calls:
+                boundary_pool.boundary_max_pool_segmented(x, seg, levels)
+
+    tot = {'ms': dev['grouped'], 'call_ms': host['grouped'],
+           'route_ms': dev['route'], 'route_call_ms': host['route'],
+           'plain_ms': device_ms(plain, reps=3),
+           'bound_ms': sum(pool_bound_ms(*c) for c in calls),
+           'call_bound_ms': sum(pool_bound_ms(x, seg)
+                                for x, seg, _ in route)}
+    for i, (x, seg, levels) in enumerate(calls):
+        log(f'call {i}: x {tuple(x.shape)} {x.dtype}, K {seg.shape[1]}, '
+            f'{len(levels)} levels; group bound '
+            f'{pool_bound_ms(x, seg, levels):.6f} ms')
+    log(f'one forward (W=32, inputs as the bf16 model gives them), device '
+        f'ms: grouped, {len(calls)} calls: {tot["ms"]} ({tot["call_ms"]} '
+        f'with host overhead); per-level route, 24 calls: {tot["route_ms"]} '
+        f'({tot["route_call_ms"]}); plain {tot["plain_ms"]}; group bound '
+        f'{tot["bound_ms"]}, summed per-call bound {tot["call_bound_ms"]}; '
+        f'grouped at {tot["bound_ms"] / tot["ms"]:.3f} of the group bound '
+        f'and {tot["call_bound_ms"] / tot["ms"]:.3f} of the per-call bound, '
+        f'the route at {tot["call_bound_ms"] / tot["route_ms"]:.3f} of the '
+        f'per-call bound; {card_line()}')
     return max_err, tot
 
 
@@ -324,7 +394,8 @@ def compare_full_width(state_dict):
         out_p = model(clips)
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
-    assert launched == 24, f'{launched} kernel launches in one forward'
+    assert launched == POOLS_PER_FORWARD, \
+        f'{launched} kernel launches in one forward'
     for key in OUT_KEYS:
         if not torch.equal(out_k[key], out_p[key]):
             diff = (out_k[key] - out_p[key]).abs().max().item()
@@ -419,12 +490,13 @@ def phase_end_to_end(state_dict, root):
     assert boundary_pool_cuda.BWD_LAUNCHES == 0, 'backward in inference'
     assert pack_launches() == 0, 'stem pack with model.stem_pallas off'
     n_props = check_detection_json(path, lengths)
-    assert launches == 24 * n_forwards, (launches, n_forwards)
+    assert launches == POOLS_PER_FORWARD * n_forwards, (launches,
+                                                        n_forwards)
     log(f'videos {len(lengths)}, windows {n_windows}, proposals {n_props}, '
         f'wall {wall:.3f} s, {n_windows / wall:.2f} windows/s (first run, '
         f'includes video load, upload and post-processing)')
     log(f'boundary_max_pool_fwd launches in this run: {launches} '
-        f'({n_forwards} forwards x 24)')
+        f'({n_forwards} forwards x {POOLS_PER_FORWARD})')
     cfg.testing['output_json'] = 'warm.json'
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -534,7 +606,9 @@ def phase_throughput(state_dict, root, lengths):
 
 # ---------------------------------------------------------------- training
 
-TRAIN_STEP_FWD, TRAIN_STEP_BWD = 31, 27    # pool launches per train step
+# pool launches per train step: the main pass's 2, the SSL triplets' 2
+# (the frame-level pool; loc and conf lr as one packed call)
+TRAIN_STEP_FWD, TRAIN_STEP_BWD = 4, 4
 
 
 def train_model(cfg, frame: int, crop: int, device, seed: int = 0):
@@ -592,14 +666,17 @@ def loss_and_grads(model, cfg, batch, epoch: int = 11):
 
 
 def capture_train_calls(model, cfg, batch):
-    """(x, segments, g) of every boundary-pool call of one full train step
-    (g None where the output gets no gradient), in call order."""
+    """(x, segments, levels, g) of every boundary-pool call of one full
+    train step (g None where the output gets no gradient), in call
+    order."""
     calls = []
-    real = boundary_pool.boundary_max_pool
+    real = boundary_pool.boundary_max_pool_segmented
 
-    def recording(x, seg):
-        out = real(x, seg)
-        rec = {'x': x.detach().clone(), 'seg': seg.clone(), 'g': None}
+    def recording(x, seg, levels):
+        out = real(x, seg, levels)
+        rec = {'x': x.detach().clone(), 'seg': seg.clone(),
+               'levels': boundary_pool_cuda.check_levels(
+                   levels, x.shape[1], seg.shape[1]), 'g': None}
         calls.append(rec)
         if out.requires_grad:
             def hook(g, rec=rec):
@@ -609,24 +686,27 @@ def capture_train_calls(model, cfg, batch):
             out.register_hook(hook)
         return out
 
-    pyramid.boundary_max_pool = bdnet_mod.boundary_max_pool = recording
+    pyramid.boundary_max_pool_segmented = recording
+    bdnet_mod.boundary_max_pool_segmented = recording
     try:
         loss_and_grads(model, cfg, batch)
     finally:
-        pyramid.boundary_max_pool = bdnet_mod.boundary_max_pool = real
+        pyramid.boundary_max_pool_segmented = real
+        bdnet_mod.boundary_max_pool_segmented = real
     torch.cuda.synchronize()
     return calls
 
 
-def quantized_case(b, t_len, c, k, seed):
-    """x on 5 levels (ties everywhere), adversarial segments, g on a
-    1/64 grid (float32 sums of it are exact in any order)."""
+def quantized_case(b, c, levels, seed):
+    """x on 5 values (ties everywhere), per-level adversarial segments, g
+    on a 1/64 grid (float32 sums of it are exact in any order)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
+    t_len, k = (sum(v) for v in zip(*levels))
     x = torch.randint(-2, 3, (b, t_len, c), generator=gen,
                       device='cuda').float()
     g = torch.randint(-256, 257, (b, k, c), generator=gen,
                       device='cuda').float() / 64
-    return x, adversarial_segments(b, k, t_len, seed), g
+    return x, adversarial_levels(b, levels, seed), levels, g
 
 
 def bwd_bound_ms(g: torch.Tensor, t_len: int) -> float:
@@ -639,30 +719,36 @@ def bwd_bound_ms(g: torch.Tensor, t_len: int) -> float:
 
 
 def phase_bwd_kernel_vs_plain(cfg):
-    log('== phase 3: boundary_max_pool_bwd vs plain version on the card')
+    log('== phase 3: grouped boundary_max_pool_bwd (B2) vs plain version '
+        'on the card')
     model = train_model(cfg, FRAMES, CROP, 'cuda')
     calls = capture_train_calls(model, cfg, train_batch(1, FRAMES, CROP, 7,
                                                         'cuda'))
     del model
     with_g = [c for c in calls if c['g'] is not None]
     log(f'one full-width bs=1 train step: {len(calls)} pool calls, '
-        f'{len(with_g)} with a gradient')
+        f'{len(with_g)} with a gradient: ' + ', '.join(
+            f'x {tuple(c["x"].shape)} K {c["seg"].shape[1]} '
+            f'{len(c["levels"])} levels' for c in with_g))
     assert (len(calls), len(with_g)) == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), \
         (len(calls), len(with_g))
-    cases = [(c['x'], c['seg'], c['g'], 'captured') for c in with_g]
+    cases = [(c['x'], c['seg'], c['levels'], c['g'], 'captured')
+             for c in with_g]
     for i, c in enumerate(with_g):
-        (b, t_len, ch), k = c['x'].shape, c['seg'].shape[1]
-        cases.append(quantized_case(b, t_len, ch, k, 100 + i) + ('ties',))
+        cases.append(quantized_case(c['x'].shape[0], c['x'].shape[2],
+                                    c['levels'], 100 + 10 * i) + ('ties',))
     max_err = 0.0
-    for i, (x, seg, g, kind) in enumerate(cases):
+    for i, (x, seg, levels, g, kind) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             xd, gd = x.to(dtype).contiguous(), g.to(dtype).contiguous()
             out, am = boundary_pool_cuda.boundary_max_pool_fwd(
-                xd, seg, with_argmax=True)
-            dx = boundary_pool_cuda.boundary_max_pool_bwd(am, gd,
-                                                          x.shape[1])
-            want_out, want_am = boundary_pool._plain_forward(xd, seg, True)
-            want_dx = boundary_pool.plain_backward(want_am, gd, x.shape[1])
+                xd, seg, True, levels)
+            dx = boundary_pool_cuda.boundary_max_pool_bwd(
+                am, gd, x.shape[1], levels)
+            want_out, want_am = boundary_pool.plain_forward_segmented(
+                xd, seg, levels, True)
+            want_dx = boundary_pool.plain_backward_segmented(want_am, gd,
+                                                             levels)
             torch.cuda.synchronize()
             if not torch.equal(out, want_out):
                 raise AssertionError(f'fwd with argmax != plain: {i} {kind}')
@@ -671,60 +757,68 @@ def phase_bwd_kernel_vs_plain(cfg):
                                      f'{kind} {dtype}')
             err = (dx.float() - want_dx.float()).abs().max().item()
             max_err = max(max_err, err)
+            if kind == 'ties' and not torch.equal(dx, want_dx):
+                raise AssertionError(f'dx != plain on tied call {i} {dtype}: '
+                                     f'{err}')
             torch.testing.assert_close(
                 dx, want_dx, rtol=1e-6, atol=1e-6,
                 msg=lambda m: f'dx call {i} {kind} {dtype}: {m}')
-    log(f'argmax == plain exactly and dx within rtol 1e-6 / atol 1e-6 on '
-        f'{len(with_g)} captured + {len(with_g)} tied calls x (f32, bf16); '
-        f'max_abs_err {max_err}')
+    log(f'argmax == plain exactly, dx within rtol 1e-6 / atol 1e-6 on '
+        f'{len(with_g)} captured calls and equal on {len(with_g)} tied '
+        f'calls, x (f32, bf16); max_abs_err {max_err}')
 
-    rows = []
-    tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0,
-           'fwd_train_ms': 0.0}
+    # time: the grouped calls of one step against the per-level route
+    # (the same kernels through their one-level entry, 27 calls)
+    grouped, route = [], []
     for c in with_g:
-        x, seg, g = c['x'], c['seg'], c['g']
-        t_len = x.shape[1]
-        _, am = boundary_pool_cuda.boundary_max_pool_fwd(x, seg, True)
-        am64 = am.long()
+        x, seg, levels, g = c['x'], c['seg'], c['levels'], c['g']
+        _, am = boundary_pool_cuda.boundary_max_pool_fwd(x, seg, True,
+                                                         levels)
+        grouped.append((x, seg, levels, g, am))
+        for xr, sr, gr in per_level_route(x, seg, levels, g):
+            _, ar = boundary_pool_cuda.boundary_max_pool_fwd(xr, sr, True)
+            route.append((xr, sr, None, gr, ar))
+    assert len(route) == 27, len(route)
 
-        def kernel():
-            boundary_pool_cuda.boundary_max_pool_bwd(am, g, t_len)
+    def bwd(cs):
+        return lambda: [boundary_pool_cuda.boundary_max_pool_bwd(
+            am, g, x.shape[1], levels) for x, _, levels, g, am in cs]
 
-        def plain():
-            boundary_pool.plain_backward(am64, g, t_len)
+    def fwd_train(cs):
+        return lambda: [boundary_pool_cuda.boundary_max_pool_fwd(
+            x, seg, True, levels) for x, seg, levels, _, _ in cs]
 
-        def library():
-            torch.zeros((g.shape[0], t_len, g.shape[2]), device='cuda'
-                        ).scatter_add_(1, am64, g)
+    def plain():
+        for x, _, levels, g, am in grouped:
+            boundary_pool.plain_backward_segmented(am.long(), g, levels)
 
-        def fwd_train():
-            boundary_pool_cuda.boundary_max_pool_fwd(x, seg, True)
+    def library():
+        for x, _, _, g, am in grouped:
+            torch.zeros((g.shape[0], x.shape[1], g.shape[2]), device='cuda'
+                        ).scatter_add_(1, am.long(), g)
 
-        # the plain version launches one scatter per k (up to 65 kernels a
-        # call): few reps, so that the queue of launches stays within the
-        # sleep kernel's hold on the stream
-        r = {'ms': device_ms(kernel, reps=50),
-             'plain_ms': device_ms(plain, reps=4),
-             'library_ms': device_ms(library, reps=50),
-             'bound_ms': bwd_bound_ms(g, t_len),
-             'fwd_train_ms': device_ms(fwd_train, reps=50)}
-        for key in tot:
-            tot[key] += r[key]
-        rows.append((tuple(x.shape), seg.shape[1], r))
-    log('B2 device times per call (ms): kernel, plain, scatter_add_, bound '
-        '(g + argmax + dx bytes / 3.35 TB/s); B1 forward with argmax')
-    log('x(B,T,C)           K    kernel     plain   scatter   bound   '
-        'bound/kernel  fwd+argmax')
-    for shape, k, r in rows:
-        log(f'{str(shape):18s} {k:3d}  {r["ms"]:.5f}  {r["plain_ms"]:.5f}  '
-            f'{r["library_ms"]:.5f}  {r["bound_ms"]:.6f}  '
-            f'{r["bound_ms"] / r["ms"]:.3f}  {r["fwd_train_ms"]:.5f}')
-    log(f'one train step ({TRAIN_STEP_BWD} backward calls, bs=1, f32): '
-        f'kernel {tot["ms"]} ms, plain {tot["plain_ms"]} ms, scatter_add_ '
-        f'{tot["library_ms"]} ms, bound {tot["bound_ms"]} ms; B1 forward '
-        f'with argmax on the same {TRAIN_STEP_BWD} calls '
-        f'{tot["fwd_train_ms"]} ms')
-    del calls, cases, with_g
+    dev = in_turns({'route': bwd(route), 'grouped': bwd(grouped)}, 20,
+                   device_ms)
+    fwd = in_turns({'route': fwd_train(route),
+                    'grouped': fwd_train(grouped)}, 20, device_ms)
+    # the plain version launches one scatter per k (~400 kernels a step):
+    # few reps, so that the queue stays within the sleep kernel's hold
+    tot = {'ms': dev['grouped'], 'route_ms': dev['route'],
+           'plain_ms': device_ms(plain, reps=1),
+           'library_ms': device_ms(library, reps=20),
+           'bound_ms': sum(bwd_bound_ms(g, x.shape[1])
+                           for x, _, _, g, _ in grouped),
+           'fwd_train_ms': fwd['grouped'], 'fwd_train_route_ms': fwd['route'],
+           'fwd_train_bound_ms': sum(pool_bound_ms(x, seg, levels, True)
+                                     for x, seg, levels, _, _ in grouped)}
+    log(f'one train step (bs=1, f32), device ms: B2 grouped, '
+        f'{len(grouped)} calls: {tot["ms"]}; per-level route, 27 calls: '
+        f'{tot["route_ms"]}; plain {tot["plain_ms"]}; scatter_add_ '
+        f'{tot["library_ms"]}; bound (g + argmax + dx) {tot["bound_ms"]} '
+        f'({tot["bound_ms"] / tot["ms"]:.3f} of it); B1 with argmax, '
+        f'grouped {tot["fwd_train_ms"]}, route {tot["fwd_train_route_ms"]}, '
+        f'group bound {tot["fwd_train_bound_ms"]}; {card_line()}')
+    del calls, cases, with_g, grouped, route
     torch.cuda.empty_cache()
     return max_err, tot
 
@@ -1175,7 +1269,8 @@ def phase_end_to_end_stem(root, lengths, warm_off):
     counts = (stem_pack_cuda.V1_LAUNCHES, stem_pack_cuda.V2_LAUNCHES,
               boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES)
     n_props = check_detection_json(path, lengths)
-    assert counts == (0, n_forwards, 24 * n_forwards, 0), counts
+    assert counts == (0, n_forwards, POOLS_PER_FORWARD * n_forwards, 0), \
+        counts
     log(f'{n_props} proposals; launches in this run: stem pack (v1, v2) '
         f'{counts[:2]}, B1 {counts[2]} ({n_forwards} forwards)')
     torch.cuda.synchronize()
@@ -1318,7 +1413,7 @@ def main() -> int:
     clips = random_clips(32, 0)
     calls = capture_pool_inputs(build_model(state_dict, torch.bfloat16,
                                             'cuda'), clips)
-    assert len(calls) == 24, len(calls)
+    assert len(calls) == POOLS_PER_FORWARD, len(calls)
     max_err, tot = phase_kernel_vs_plain(calls)
     del calls
     torch.cuda.empty_cache()

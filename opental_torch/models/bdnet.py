@@ -18,7 +18,7 @@ from torch import nn
 from opental_torch.models.i3d import InceptionI3d
 from opental_torch.models.pyramid import (CoarsePyramid,
                                           expand_boundary_segments)
-from opental_torch.ops.boundary_pool import boundary_max_pool
+from opental_torch.ops.boundary_pool import boundary_max_pool_segmented
 
 SSL_SCALES = (1.0, 4.0, 4.0)
 
@@ -134,11 +134,21 @@ class BDNet(nn.Module):
         decoded = proposals[..., :2].float()                # (B, 3, 2)
         frame_segments = expand_boundary_segments(
             decoded[..., :1], decoded[..., 1:], plus_one=True)
+        frame, loc_lr, conf_lr = trip
+        k = frame_segments.shape[1]
+        # the frame-level pool, and both lr pools as one segmented call
+        # (loc_lr and conf_lr packed along t, each window on its own rows)
+        bounds = [boundary_max_pool_segmented(
+            frame.contiguous(), frame_segments / SSL_SCALES[0], None)]
+        lr = boundary_max_pool_segmented(
+            torch.cat([loc_lr, conf_lr], dim=1),
+            torch.cat([frame_segments / SSL_SCALES[1],
+                       frame_segments / SSL_SCALES[2]], dim=1),
+            ((loc_lr.shape[1], k), (conf_lr.shape[1], k)))
+        bounds += [lr[:, :k], lr[:, k:]]
         anchor, positive, negative = [], [], []
-        for feat, scale in zip(trip, SSL_SCALES):
-            bound = boundary_max_pool(feat.contiguous(),
-                                      (frame_segments / scale).contiguous())
-            ndim = bound.shape[-1] // 2                     # (B, 3, C)
+        for bound in bounds:                                # (B, 3, C)
+            ndim = bound.shape[-1] // 2
             anchor.append(bound[:, 0, ndim:])
             positive.append(bound[:, 1, :ndim])
             negative.append(bound[:, 2, :ndim])

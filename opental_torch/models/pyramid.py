@@ -8,9 +8,15 @@ the reference's) layout: (B, P, ...) with P = 126 priors at 256 frames.
 Module names follow the reference state_dict
 ('pyramids.0.0.conv3d.weight', 'loc_tower.1.0.conv1d.weight',
 'loc_proposal_branch.lr_conv.1.weight', 'loc_heads.3.scale', ...).
+The level loop runs in three stages: per level the towers, heads and the
+branches' features; then every boundary pool of the pass in two launches
+(the frame-level pool of all levels, shared by both branches, and the lr
+features of all levels and both branches packed into one segmented
+call); then per level the refinement and proposal heads.
 `forward(..., ssl=True)` is the SSL pass: it returns {'trip': [frame-level
-feature, loc lr feature, conf lr feature]} right after level 0's proposal
-branches. The RPL and transformer branches are not ported yet.
+feature, loc lr feature, conf lr feature]} right after level 0's branch
+features, before any pool. The RPL and transformer branches are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from torch import nn
 from opental_torch.models.layers import (ConvGNReLU1D, GroupNorm32,
                                          ScaleExp, Unit1D, Unit3D,
                                          interpolate_nearest_1d)
-from opental_torch.ops.boundary_pool import boundary_max_pool
+from opental_torch.ops.boundary_pool import boundary_max_pool_segmented
 
 LAYER_NUM = 6
 CONV_CHANNELS = 512
@@ -93,7 +99,10 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
 
 
 class ProposalBranch(nn.Module):
-    """Boundary-pooled proposal refinement (thumos14/BDNet.py:64-113)."""
+    """Boundary-pooled proposal refinement (thumos14/BDNet.py:64-113),
+    in two stages around the pools, which `CoarsePyramid` runs for every
+    level and both branches at once: `features` before them, `refine`
+    after."""
 
     def __init__(self, in_channels: int = CONV_CHANNELS,
                  proposal_channels: int = 512,
@@ -105,19 +114,20 @@ class ProposalBranch(nn.Module):
         self.roi_conv = ConvGNReLU1D(CONV_CHANNELS, pc, 1, dtype=dtype)
         self.proposal_conv = ConvGNReLU1D(pc * 4, pc, 1, dtype=dtype)
 
-    def forward(self, feature: torch.Tensor, frame_level_tc: torch.Tensor,
-                segments: torch.Tensor, frame_segments: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """feature (B, C, t); frame_level_tc (B, T, 512) channels-last.
-        Returns (proposal feature (B, 512, t), lr feature (B, 1024, t))."""
-        fm_short = self.cur_point_conv(feature)
-        feature = self.lr_conv(feature)
-        prop = boundary_max_pool(_channels_last(feature).contiguous(),
-                                 segments)
-        roi = boundary_max_pool(frame_level_tc, frame_segments)
+    def features(self, feature: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """feature (B, C, t) -> (fm_short (B, 512, t), lr feature
+        (B, 1024, t), the input of the level's boundary pool)."""
+        return self.cur_point_conv(feature), self.lr_conv(feature)
+
+    def refine(self, fm_short: torch.Tensor, prop: torch.Tensor,
+               roi: torch.Tensor) -> torch.Tensor:
+        """fm_short (B, 512, t); the level's pools, channels-last: prop
+        (B, t, 1024) of the lr feature, roi (B, t, 512) of the frame-level
+        feature. Returns the proposal feature (B, 512, t)."""
         roi = self.roi_conv(_channels_last(roi))
-        prop = torch.cat([roi, _channels_last(prop), fm_short], dim=1)
-        return self.proposal_conv(prop), feature
+        return self.proposal_conv(torch.cat(
+            [roi, _channels_last(prop), fm_short], dim=1))
 
 
 def _tower(depth: int = 2, dtype=None) -> nn.Sequential:
@@ -202,8 +212,9 @@ class CoarsePyramid(nn.Module):
         out: Dict[str, Any] = {'start': frame_tc[..., :half],
                                'end': frame_tc[..., half:]}
 
-        locs, confs, acts, centers = [], [], [], []
-        prop_locs, prop_confs, prop_acts = [], [], []
+        # (A) per level: towers, heads, pooling windows, branch features
+        locs, confs, acts = [], [], []
+        seg_list, frame_seg_list, shorts, lrs = [], [], [], []
         for i, feat in enumerate(feats):
             loc_feat = self.loc_tower(feat)
             conf_feat = self.conf_tower(feat)
@@ -217,10 +228,13 @@ class CoarsePyramid(nn.Module):
 
             segments, frame_segments = proposal_segments(
                 loc_out.detach(), self.frame_num)
-            loc_prop, loc_lr = self.loc_proposal_branch(
-                loc_feat, frame_tc, segments, frame_segments)
-            conf_prop, conf_lr = self.conf_proposal_branch(
-                conf_feat, frame_tc, segments, frame_segments)
+            seg_list.append(segments)
+            frame_seg_list.append(frame_segments)
+            loc_short, loc_lr = self.loc_proposal_branch.features(loc_feat)
+            conf_short, conf_lr = self.conf_proposal_branch.features(
+                conf_feat)
+            shorts.append((loc_short, conf_short))
+            lrs.append((loc_lr, conf_lr))
             if i == 0:
                 nd = loc_lr.shape[1] // 2
                 loc_lr, conf_lr = _channels_last(loc_lr), \
@@ -229,8 +243,36 @@ class CoarsePyramid(nn.Module):
                 out['end_loc_prop'] = loc_lr[..., nd:]
                 out['start_conf_prop'] = conf_lr[..., :nd]
                 out['end_conf_prop'] = conf_lr[..., nd:]
-                if ssl:
+                if ssl:     # nothing reads the pools of this pass
                     return {'trip': [frame_tc, loc_lr, conf_lr]}
+
+        # (B) every pool of the pass in two launches. Both branches pool
+        # frame_tc with the same windows: one call over all levels' 126
+        # windows, read by both. The lr features of every level and both
+        # branches (loc levels, then conf levels) are packed along t as
+        # the 12 levels of one segmented call, each window clamped to its
+        # own level's rows.
+        sizes = [s.shape[1] for s in seg_list]       # t_i windows = rows
+        k_all = sum(sizes)
+        roi_all = boundary_max_pool_segmented(
+            frame_tc, torch.cat(frame_seg_list, dim=1),
+            ((frame_tc.shape[1], k_all),))           # (B, 126, 512)
+        packed = torch.cat([_channels_last(lr[j]) for j in (0, 1)
+                            for lr in lrs], dim=1)   # (B, 2 * 126, 1024)
+        prop_all = boundary_max_pool_segmented(
+            packed, torch.cat(seg_list * 2, dim=1),
+            tuple((t, t) for t in sizes) * 2)        # (B, 2 * 126, 1024)
+
+        # (C) per level: refinement and proposal heads
+        prop_locs, prop_confs, prop_acts, centers = [], [], [], []
+        k0 = 0
+        for t, (loc_short, conf_short) in zip(sizes, shorts):
+            roi = roi_all[:, k0:k0 + t]
+            loc_prop = self.loc_proposal_branch.refine(
+                loc_short, prop_all[:, k0:k0 + t], roi)
+            conf_prop = self.conf_proposal_branch.refine(
+                conf_short, prop_all[:, k_all + k0:k_all + k0 + t], roi)
+            k0 += t
             prop_locs.append(_channels_last(self.prop_loc_head(loc_prop)))
             prop_confs.append(_channels_last(self.prop_conf_head(
                 self._drop(conf_prop))))

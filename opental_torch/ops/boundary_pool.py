@@ -10,10 +10,19 @@ where channel half h = c // (C/2) reads (l, r) from segments[b, k,
 (reference AFSD/prop_pooling/boundary_max_pooling_kernel.cu:17-46). The
 gradient flows to the FIRST argmax of each window.
 
-`boundary_max_pool` is the op the model calls: a CPU tensor goes to the
-plain version, a CUDA tensor to the hand-written kernels
-(`boundary_pool_cuda`: the forward, and when x needs a gradient the
-forward that also writes the argmax plus the backward) or a raise.
+The segmented contract (`boundary_max_pool_segmented`) runs a table of
+such problems in one call: `levels` ((t_0, k_0), ..., (t_{n-1}, k_{n-1}))
+packs level i's t_i rows of x along T and its k_i windows along K, in
+order. Window k of level i is clamped to that level's own rows [0,
+t_i - 1] and never reads a neighbouring level; its argmax is an index
+into the packed T axis, so a `torch.cat` that packed x routes dx back to
+each level. One level (T, K) is the plain contract above.
+
+`boundary_max_pool_segmented` is the op the model calls, and
+`boundary_max_pool` its one-level case: a CPU tensor goes to the plain
+version, a CUDA tensor to the hand-written kernels (`boundary_pool_cuda`:
+one launch of the forward, and when x needs a gradient of the forward
+that also writes the argmax plus one of the backward) or a raise.
 `force_plain` exists for the tests and chip_smoke.py only, to hold the
 kernels against the plain version on the card.
 """
@@ -21,11 +30,12 @@ kernels against the plain version on the card.
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from opental_torch.ops import boundary_pool_cuda
+from opental_torch.ops.boundary_pool_cuda import Levels
 
 
 def clamp_windows(segments: torch.Tensor, t_len: int
@@ -62,11 +72,49 @@ def _plain_forward(x: torch.Tensor, segments: torch.Tensor,
     return out, (torch.cat(args, -1) if with_argmax else None)
 
 
+def _level_slices(levels: Levels):
+    """(rows, windows) slices of each level on the packed axes."""
+    x_off = k_off = 0
+    for t, k in levels:
+        yield slice(x_off, x_off + t), slice(k_off, k_off + k)
+        x_off, k_off = x_off + t, k_off + k
+
+
+def plain_forward_segmented(x: torch.Tensor, segments: torch.Tensor,
+                            levels: Levels, with_argmax: bool):
+    """The segmented contract as a loop over levels of `_plain_forward`
+    on each level's slices, the argmax offset onto the packed T axis."""
+    outs, args = [], []
+    for rows, wins in _level_slices(levels):
+        if wins.stop == wins.start:
+            continue
+        out, argmax = _plain_forward(x[:, rows], segments[:, wins],
+                                     with_argmax)
+        outs.append(out)
+        if with_argmax:
+            args.append(argmax + rows.start)
+    if not outs:
+        empty = x.new_empty((x.shape[0], 0, x.shape[2]))
+        return empty, (empty.long() if with_argmax else None)
+    return (torch.cat(outs, 1),
+            torch.cat(args, 1) if with_argmax else None)
+
+
+def plain_backward_segmented(argmax: torch.Tensor, g: torch.Tensor,
+                             levels: Levels) -> torch.Tensor:
+    """dx (B, T, C) of the segmented contract: `plain_backward` on each
+    level's slices of the packed argmax and g, concatenated."""
+    return torch.cat([plain_backward(argmax[:, wins] - rows.start,
+                                     g[:, wins], rows.stop - rows.start)
+                      for rows, wins in _level_slices(levels)], 1)
+
+
 class _PlainPool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, segments):
-        out, argmax = _plain_forward(x, segments, x.requires_grad)
-        ctx.t_len = x.shape[1]
+    def forward(ctx, x, segments, levels):
+        out, argmax = plain_forward_segmented(x, segments, levels,
+                                              x.requires_grad)
+        ctx.levels = levels
         ctx.save_for_backward(argmax if argmax is not None
                               else torch.empty(0))
         return out
@@ -74,7 +122,7 @@ class _PlainPool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (argmax,) = ctx.saved_tensors
-        return plain_backward(argmax, g, ctx.t_len), None
+        return plain_backward_segmented(argmax, g, ctx.levels), None, None
 
 
 def plain_backward(argmax: torch.Tensor, g: torch.Tensor, t_len: int
@@ -92,19 +140,20 @@ def plain_backward(argmax: torch.Tensor, g: torch.Tensor, t_len: int
 
 def boundary_max_pool_plain(x: torch.Tensor, segments: torch.Tensor
                             ) -> torch.Tensor:
-    """Mask-and-max version, differentiable in x (first-argmax
-    backward). O(B*K*T*C) memory."""
-    return _PlainPool.apply(x, segments)
+    """Mask-and-max version of one level, differentiable in x
+    (first-argmax backward). O(B*K*T*C) memory."""
+    return _PlainPool.apply(x, segments,
+                            ((x.shape[1], segments.shape[1]),))
 
 
 class _CudaPool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, segments):
+    def forward(ctx, x, segments, levels):
         train = ctx.needs_input_grad[0]
         out, argmax = boundary_pool_cuda.boundary_max_pool_fwd(
-            x, segments, with_argmax=train)
+            x, segments, with_argmax=train, levels=levels)
         if train:
-            ctx.t_len = x.shape[1]
+            ctx.t_len, ctx.levels = x.shape[1], levels
             ctx.save_for_backward(argmax)
         return out
 
@@ -112,7 +161,7 @@ class _CudaPool(torch.autograd.Function):
     def backward(ctx, g):
         (argmax,) = ctx.saved_tensors
         return boundary_pool_cuda.boundary_max_pool_bwd(
-            argmax, g.contiguous(), ctx.t_len), None
+            argmax, g.contiguous(), ctx.t_len, ctx.levels), None, None
 
 
 _FORCE_PLAIN = False
@@ -130,10 +179,21 @@ def force_plain():
         _FORCE_PLAIN = prev
 
 
+def boundary_max_pool_segmented(x: torch.Tensor, segments: torch.Tensor,
+                                levels: Optional[Sequence[Tuple[int, int]]]
+                                ) -> torch.Tensor:
+    """The segmented op (x (B, sum t_i, C), segments (B, sum k_i, 4),
+    levels ((t_i, k_i), ...), None for one level): one kernel launch on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    levels = boundary_pool_cuda.check_levels(levels, x.shape[1],
+                                             segments.shape[1])
+    if x.is_cuda and not _FORCE_PLAIN:
+        return _CudaPool.apply(x, segments, levels)
+    return _PlainPool.apply(x, segments, levels)
+
+
 def boundary_max_pool(x: torch.Tensor, segments: torch.Tensor
                       ) -> torch.Tensor:
-    """The op the model calls: kernel on a CUDA tensor, plain version on a
+    """The op on one level: kernel on a CUDA tensor, plain version on a
     CPU tensor."""
-    if x.is_cuda and not _FORCE_PLAIN:
-        return _CudaPool.apply(x, segments)
-    return boundary_max_pool_plain(x, segments)
+    return boundary_max_pool_segmented(x, segments, None)

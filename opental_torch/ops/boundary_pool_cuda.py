@@ -2,6 +2,12 @@
 the forward replaces the TPU kernel `opental_tpu/ops/boundary_pool_pallas.py:38`
 `_fwd_kernel`, the backward `:57` `_bwd_kernel`.
 
+Both are grouped: `levels`, a table of (t_i, k_i), packs up to
+`MAX_LEVELS` pooling problems along x's T axis and the segments' K axis
+(`ops/boundary_pool.py` has the contract); the default, one level
+(T, K), is the JAX op. The table goes to the kernel by value: no device
+memory, no synchronisation.
+
 The library builds at the first call (`_build.load`), never at import.
 `LAUNCHES` counts the forward kernel's launches and `BWD_LAUNCHES` the
 backward's: each grows by one where its kernel is launched and nowhere
@@ -11,7 +17,7 @@ else.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -20,12 +26,35 @@ from opental_torch.ops import _build
 NAME = 'boundary_pool'
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-# the backward keeps a (T, 32) float32 accumulator per block in shared
-# memory: at most 227 KB a block on Hopper
-MAX_BWD_T = 1800
+MAX_LEVELS = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 _fns = {}
+
+Levels = Tuple[Tuple[int, int], ...]
+
+
+def check_levels(levels: Optional[Sequence[Tuple[int, int]]], t_total: int,
+                 k_total: int) -> Levels:
+    """The level table as a tuple of (t_i, k_i) int pairs, None meaning
+    one level (t_total, k_total). Raises ValueError unless there are 1 to
+    MAX_LEVELS levels, the t_i sum to t_total and the k_i to k_total, and
+    every level with windows has rows."""
+    if levels is None:
+        levels = ((t_total, k_total),)
+    levels = tuple((int(t), int(k)) for t, k in levels)
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f'{len(levels)} levels: 1 to {MAX_LEVELS} are '
+                         'taken')
+    if any(t < 0 or k < 0 or (k and not t) for t, k in levels):
+        raise ValueError(f'bad level sizes {levels}: a level with windows '
+                         'needs rows')
+    if (sum(t for t, _ in levels), sum(k for _, k in levels)) != \
+            (t_total, k_total):
+        raise ValueError(f'levels {levels} do not sum to T = {t_total}, '
+                         f'K = {k_total}')
+    return levels
 
 
 def _entry(name: str, argtypes):
@@ -47,13 +76,21 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f'{name} needs contiguous tensors')
 
 
+def _table(levels: Levels):
+    n = len(levels)
+    return ((ctypes.c_int * n)(*[t for t, _ in levels]),
+            (ctypes.c_int * n)(*[k for _, k in levels]), n)
+
+
 def boundary_max_pool_fwd(x: torch.Tensor, segments: torch.Tensor,
-                          with_argmax: bool = False
+                          with_argmax: bool = False,
+                          levels: Optional[Sequence[Tuple[int, int]]] = None
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(out (B, K, C), argmax (B, K, C) int32 or None) = kernel(x (B, T, C)
-    f32|bf16, segments (B, K, 4) f32), on x's device and PyTorch's current
-    stream. with_argmax also writes the first argmax of every window (the
-    training forward); without it the kernel moves no extra bytes."""
+    f32|bf16, segments (B, K, 4) f32, levels), on x's device and
+    PyTorch's current stream. with_argmax also writes the first argmax of
+    every window, an index into x's packed T axis (the training forward);
+    without it the kernel moves no extra bytes."""
     global LAUNCHES
     _check_cuda('boundary_max_pool_fwd', x, segments)
     if x.dtype not in _DTYPES:
@@ -70,18 +107,19 @@ def boundary_max_pool_fwd(x: torch.Tensor, segments: torch.Tensor,
         raise ValueError('channel count must split into start/end halves')
     if t_len == 0:
         raise ValueError('x has no time steps')
+    ts, ks, n = _table(check_levels(levels, t_len, k))
     out = torch.empty((b, k, c), dtype=x.dtype, device=x.device)
     argmax = (torch.empty((b, k, c), dtype=torch.int32, device=x.device)
               if with_argmax else None)
     if out.numel() == 0:
         return out, argmax
     fn = _entry('boundary_max_pool_fwd', [_P, _P, _P, _P, _I, _I, _I, _I,
-                                          _I, _P])
+                                          _IP, _IP, _I, _I, _P])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), segments.data_ptr(), out.data_ptr(),
                  None if argmax is None else argmax.data_ptr(),
-                 b, t_len, c, k, _DTYPES[x.dtype], stream)
+                 b, t_len, c, k, ts, ks, n, _DTYPES[x.dtype], stream)
     LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f'boundary_max_pool_fwd launch failed: CUDA '
@@ -90,10 +128,12 @@ def boundary_max_pool_fwd(x: torch.Tensor, segments: torch.Tensor,
 
 
 def boundary_max_pool_bwd(argmax: torch.Tensor, g: torch.Tensor,
-                          t_len: int) -> torch.Tensor:
+                          t_len: int,
+                          levels: Optional[Sequence[Tuple[int, int]]] = None
+                          ) -> torch.Tensor:
     """dx (B, T, C) in g's dtype = kernel(argmax (B, K, C) int32 from the
-    training forward, g (B, K, C) f32|bf16): g[b, k, c] added at row
-    argmax[b, k, c], in ascending k, without atomics."""
+    training forward on the same levels, g (B, K, C) f32|bf16): g[b, k, c]
+    added at row argmax[b, k, c], in ascending k, without atomics."""
     global BWD_LAUNCHES
     _check_cuda('boundary_max_pool_bwd', argmax, g)
     if g.dtype not in _DTYPES:
@@ -103,18 +143,19 @@ def boundary_max_pool_bwd(argmax: torch.Tensor, g: torch.Tensor,
     if g.dim() != 3 or argmax.shape != g.shape:
         raise ValueError(f'bad shapes argmax {tuple(argmax.shape)} g '
                          f'{tuple(g.shape)}')
-    if not 0 < t_len <= MAX_BWD_T:
-        raise ValueError(f't_len {t_len} outside (0, {MAX_BWD_T}]')
+    if t_len <= 0:
+        raise ValueError(f't_len {t_len} is not positive')
     b, k, c = g.shape
+    ts, ks, n = _table(check_levels(levels, t_len, k))
     dx = torch.empty((b, t_len, c), dtype=g.dtype, device=g.device)
     if dx.numel() == 0:
         return dx
-    fn = _entry('boundary_max_pool_bwd', [_P, _P, _P, _I, _I, _I, _I, _I,
-                                          _P])
+    fn = _entry('boundary_max_pool_bwd', [_P, _P, _P, _I, _I, _I, _I, _IP,
+                                          _IP, _I, _I, _P])
     stream = torch.cuda.current_stream(g.device).cuda_stream
     with torch.cuda.device(g.device):
         err = fn(argmax.data_ptr(), g.data_ptr(), dx.data_ptr(), b, t_len,
-                 c, k, _DTYPES[g.dtype], stream)
+                 c, k, ts, ks, n, _DTYPES[g.dtype], stream)
     BWD_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f'boundary_max_pool_bwd launch failed: CUDA '

@@ -23,8 +23,9 @@ Phases (any failure ends the run with a non-zero exit):
      TF32 off: card vs CPU at W=1, kernel path vs plain path at W=32, 2
      kernel launches per forward
   6. inference end to end: synthetic uint8 videos through
-     opental_torch.tools.test.run_test at the default bf16, to a
-     detection JSON; launch counts are read from this run only
+     opental_torch.tools.test.run_test at the default bf16 (packed device
+     ingest), to a detection JSON; launch counts are read from this run
+     only
   7. training end to end: opental_torch.train.loop.train and the
      tools.train CLI at full width on synthetic videos (2 epochs, a
      checkpoint, a resume), then run_test on the result; launch counts
@@ -50,6 +51,26 @@ Phases (any failure ends the run with a non-zero exit):
      (f32, TF32 off): losses, grad norm, the stem's gradient
  15. training end to end with model.stem_pallas on (train.loop.train);
      launch counts are read from this run only
+ 16. packed device ingest at full width: run_test with the shipped
+     defaults (bf16, 128 windows per forward, 16384 frames per flush)
+     over 9 synthetic videos (one shorter than a clip, one of 33000
+     frames: 2 flushes, 2 full forwards and padded tails), B1 launches
+     against the scheduler's forwards, windows/s of the first and warm
+     runs, the device's busy share, peak memory; the same videos one at
+     a time (testing.packed: false) in turns with the packed runs; one
+     more packed run with its window gathers and forwards timed by CUDA
+     events and its post-processing on the host clock
+ 17. f32, TF32 off, on 4 of those videos: packed vs per-video, and the
+     host-staged modes (testing.device_ingest: false, packed and per
+     video) vs device ingest, per proposal at rtol 1e-4
+ 18. the kernels at the fused packed forward's shapes: B1 on both
+     streams' pool inputs at W=128, B4 at C = 2 (the flow stream's stem)
+     against their plain versions exactly; B4 at C = 2 timed
+ 19. RGB + flow fusion (seeded 2-channel flow weights, flow npys a frame
+     shorter) packed end to end with model.stem_pallas off and on: launch
+     counts, windows/s, peak memory
+ 20. threshold calibration: the tools.threshold CLI with --fusion over
+     the same videos as the training set
 Phases 8 and 9 run with model.stem_pallas off and on. Then a `kernels`
 JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Weights and data are random, made from
@@ -76,6 +97,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from opental_torch import factory  # noqa: E402
 from opental_torch.config import load_config  # noqa: E402
+from opental_torch.infer import pipeline as pipeline_mod  # noqa: E402
 from opental_torch.infer.pipeline import (InferencePipeline,  # noqa: E402
                                           window_offsets)
 from opental_torch.losses.edl import EDLState  # noqa: E402
@@ -85,6 +107,7 @@ from opental_torch.models import layers  # noqa: E402
 from opental_torch.models.bdnet import BDNet  # noqa: E402
 from opental_torch.ops import (_build, boundary_pool,  # noqa: E402
                                boundary_pool_cuda, stem_pack, stem_pack_cuda)
+from opental_torch.tools import threshold as threshold_cli  # noqa: E402
 from opental_torch.tools import train as train_cli  # noqa: E402
 from opental_torch.tools.test import run_test  # noqa: E402
 from opental_torch.train import checkpoint  # noqa: E402
@@ -103,7 +126,12 @@ OUT_KEYS = ('loc', 'conf', 'prop_loc', 'prop_conf', 'center', 'act',
             'start_conf_prop', 'end_conf_prop', 'unct', 'prop_unct')
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
+    if a and str(a[0]).startswith('=='):     # phase lines: time into the run
+        a = (f'[{time.perf_counter() - T_START:.0f} s]',) + a
     print(*a, flush=True)
 
 
@@ -467,9 +495,34 @@ def synthetic_test_config(root, **overrides):
     }, **overrides))
 
 
+PACKED_BATCH, PACKED_FRAMES = 128, 16384   # the shipped packing defaults
+
+
+def ingest_plan(videos, capacity: int = PACKED_FRAMES,
+                batch: int = PACKED_BATCH):
+    """(forwards, full forwards, flushes, windows) of run_videos_ingest
+    over videos [(frames, sample_count, flow frames or 0)], by the
+    scheduler's rule restated: a video opens a new flush where its region
+    (its last window's end or its frame count, whichever is larger) would
+    overflow the capacity; each flush pads its windows to whole
+    forwards."""
+    flush_windows, cursor = [0], 0
+    for t, count, tf in videos:
+        offs = window_offsets(count, FRAMES, 128)
+        region = max(offs[-1] + FRAMES, t, tf)
+        if cursor and cursor + region > capacity:
+            flush_windows.append(0)
+            cursor = 0
+        cursor += region
+        flush_windows[-1] += len(offs)
+    return (sum(-(-w // batch) for w in flush_windows),
+            sum(w // batch for w in flush_windows), len(flush_windows),
+            sum(flush_windows))
+
+
 def forwards_of(lengths) -> int:
-    return sum(math.ceil(len(window_offsets(t, FRAMES, 128)) / 128)
-               for t in lengths.values())
+    """Forwards of run_test in its default mode (packed device ingest)."""
+    return ingest_plan([(t, t, 0) for t in lengths.values()])[0]
 
 
 def phase_end_to_end(state_dict, root):
@@ -1388,6 +1441,452 @@ def phase_train_end_to_end_stem(root, cfg_path):
     return counts[0]
 
 
+# ------------------------------- packed ingest, fusion and calibration
+
+PACKED_LENGTHS = (200, 700, 1100, 1500, 1900, 2300, 2700, 3100, 33000)
+PACKED_SPATIAL = 100
+F32_SUBSET = 4                    # the f32 phase's videos: the first four
+FUSED_POOLS = 2 * POOLS_PER_FORWARD
+
+
+def write_packed_dataset(root: str, seed: int = 3):
+    """The packed phases' videos: PACKED_LENGTHS frames at 100 x 100
+    (center-cropped to 96), uint8 RGB and 2-channel flow one frame
+    shorter, each frame shifted by a brightness ramp along the video; one
+    video is shorter than a clip, the first eight share one flush of
+    16384 frames and the last (33000 frames) takes a flush of 3 x 16384
+    alone. Returns ({'rgb', 'flow'} directories, {name: (frames,
+    sample_count, flow frames)})."""
+    g = torch.Generator().manual_seed(seed)
+    dirs = {k: os.path.join(root, f'packed_{k}') for k in ('rgb', 'flow')}
+    # frames drawn from a pool of 2048 random frames per stream (cheaper
+    # than 2.3 GB of fresh random bytes), each shifted by the ramp
+    pools = {ch: torch.randint(0, 200, (2048, PACKED_SPATIAL,
+                                        PACKED_SPATIAL, ch), generator=g,
+                               dtype=torch.uint8) for ch in (2, 3)}
+    rows = ['video,fps,sample_fps,count,sample_count']
+    videos = {}
+    for v, t in enumerate(PACKED_LENGTHS):
+        name = f'video_packed_{v:03d}'
+        for key, ch, n in (('rgb', 3, t), ('flow', 2, t - 1)):
+            os.makedirs(dirs[key], exist_ok=True)
+            x = pools[ch][torch.randint(0, 2048, (n,), generator=g)]
+            x += (torch.arange(n) * 55 // max(n - 1, 1)).to(
+                torch.uint8)[:, None, None, None]
+            np.save(os.path.join(dirs[key], name + '.npy'), x.numpy())
+            del x
+        rows.append(f'{name},30.0,10.0,{t * 3},{t}')
+        videos[name] = (t, t, t - 1)
+    for tag, keep in (('packed', len(rows)), ('subset', F32_SUBSET + 1)):
+        with open(os.path.join(root, f'{tag}_info.csv'), 'w') as f:
+            f.write('\n'.join(rows[:keep]) + '\n')
+    return dirs, videos
+
+
+def packed_overrides(root, dirs, info='packed_info.csv'):
+    """The shipped config's keys for the packed videos as both the test
+    and the training set, with the RGB and flow checkpoints."""
+    return {
+        'dataset.class_info_path': os.path.join(root, 'classes.txt'),
+        'dataset.testing.video_info_path': os.path.join(root, info),
+        'dataset.testing.video_data_path': dirs['rgb'],
+        'dataset.training.video_info_path': os.path.join(root, info),
+        'dataset.training.video_data_path': dirs['rgb'],
+        'testing.checkpoint_path': os.path.join(root, 'checkpoint-1.ckpt'),
+        'testing.flow_checkpoint_path': os.path.join(root, 'flow.ckpt'),
+        'testing.rgb_data_path': dirs['rgb'],
+        'testing.flow_data_path': dirs['flow'],
+        'training.rgb_data_path': dirs['rgb'],
+        'training.flow_data_path': dirs['flow'],
+        'testing.output_path': os.path.join(root, 'out_packed'),
+    }
+
+
+def counts():
+    return (boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES,
+            stem_pack_cuda.V1_LAUNCHES, stem_pack_cuda.V2_LAUNCHES)
+
+
+def timed_run(cfg):
+    """run_test(cfg) from zeroed launch counts: (JSON path, wall s,
+    counts (B1, B2, v1 pack, v2 pack), peak GiB)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    path = run_test(cfg)
+    torch.cuda.synchronize()
+    return (path, time.perf_counter() - t0, counts(),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def busy_share(fn, label: str) -> float:
+    """The device's busy share of one fn(): the union of the intervals in
+    which any kernel, copy or fill ran on the card (torch.profiler, CUDA
+    activity only, every thread and stream; inference records no
+    annotation ranges), over the wall time with the profiler on. Reads the profiler's raw events: building its event
+    tree for the ~10^6 launches of a dataset run takes minutes."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy_ns, end = 0, None
+    for start, stop in spans:
+        if end is None or start > end:
+            busy_ns += stop - start
+            end = stop
+        elif stop > end:
+            busy_ns += stop - end
+            end = stop
+    if not spans:
+        raise RuntimeError(f'{label}: the profiler recorded no device time')
+    busy = busy_ns / 1e6
+    log(f'profile {label}: wall {wall_ms:.1f} ms (profiling on), device '
+        f'busy {busy:.1f} ms ({busy / wall_ms:.1%}), {len(spans)} device '
+        f'events')
+    return busy / wall_ms
+
+
+def timed_parts(cfg, label: str) -> dict:
+    """One run_test(cfg), no profiler, with its parts timed: each window
+    gather (`device_windows`) and each forward + decode
+    (`InferencePipeline.forward_decode`) as the span between two CUDA
+    events recorded around its launches on the compute stream (device
+    time, including any gap in which the stream waited for the host),
+    and each video's post-processing (`_finish_packed`) on the host clock
+    from a synchronize (its first read of the rows would wait for the
+    stream there anyway) to its proposals. Returns seconds per part and
+    the wall."""
+    spans = {'gather': [], 'forward': []}
+    post = []
+    real = (pipeline_mod.device_windows, InferencePipeline.forward_decode,
+            InferencePipeline._finish_packed)
+
+    def evented(key, fn):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            stop.record()
+            spans[key].append((start, stop))
+            return out
+        return run
+
+    def finish(self, vid, results):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real[2](self, vid, results)
+        post.append(time.perf_counter() - t0)
+
+    pipeline_mod.device_windows = evented('gather', real[0])
+    InferencePipeline.forward_decode = evented('forward', real[1])
+    InferencePipeline._finish_packed = finish
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_test(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        (pipeline_mod.device_windows, InferencePipeline.forward_decode,
+         InferencePipeline._finish_packed) = real
+    out = {key: sum(a.elapsed_time(b) for a, b in ev) / 1e3
+           for key, ev in spans.items()}
+    out['post'] = sum(post)
+    out['wall'] = wall
+    rest = wall - out['gather'] - out['forward'] - out['post']
+    log(f'parts {label}: wall {wall:.4f} s; {len(spans["gather"])} '
+        f'gathers {out["gather"]:.4f} s, {len(spans["forward"])} forward + '
+        f'decode {out["forward"]:.4f} s (CUDA events; '
+        f'{out["forward"] / wall:.1%} of the wall), post-processing of '
+        f'{len(post)} videos {out["post"]:.4f} s on the host '
+        f'({out["post"] / wall:.1%}), the rest {rest:.4f} s')
+    return out
+
+
+def pair_proposals(want, got):
+    """Pairs of two equal-length proposal lists: both sorted by (label,
+    -score); runs of near-tied scores (gap <= 1e-5) re-sorted by segment
+    (`opental_tpu/utils/propmatch.py` pair_proposals)."""
+    assert len(want) == len(got), (len(want), len(got))
+    key = lambda p: (p['label'], -p['score'])  # noqa: E731
+    want, got = sorted(want, key=key), sorted(got, key=key)
+    pairs, i = [], 0
+    while i < len(want):
+        j = i + 1
+        while (j < len(want) and want[j]['label'] == want[i]['label']
+               and want[j - 1]['score'] - want[j]['score'] <= 1e-5):
+            j += 1
+        seg = lambda p: tuple(p['segment'])  # noqa: E731
+        pairs += zip(sorted(want[i:j], key=seg), sorted(got[i:j], key=seg))
+        i = j
+    return pairs
+
+
+def assert_same_json(want_path, got_path, label: str) -> float:
+    """tests/test_packed_inference.py::_assert_same on every video of two
+    detection JSONs: equal counts, each pair of the same class with score
+    and segment at rtol 1e-4 (segments atol 1e-4). Returns the largest
+    relative score difference."""
+    with open(want_path) as f:
+        want = json.load(f)['results']
+    with open(got_path) as f:
+        got = json.load(f)['results']
+    assert set(want) == set(got), label
+    worst = 0.0
+    for name in want:
+        assert len(want[name]) == len(got[name]), (label, name,
+                                                   len(want[name]),
+                                                   len(got[name]))
+        for a, b in pair_proposals(want[name], got[name]):
+            assert a['label'] == b['label'], (label, name, a, b)
+            np.testing.assert_allclose(a['score'], b['score'], rtol=1e-4,
+                                       err_msg=f'{label} {name}')
+            np.testing.assert_allclose(a['segment'], b['segment'],
+                                       rtol=1e-4, atol=1e-4,
+                                       err_msg=f'{label} {name}')
+            worst = max(worst, abs(a['score'] - b['score'])
+                        / max(abs(b['score']), 1e-30))
+    return worst
+
+
+def phase_packed(root, dirs, videos):
+    log(f'== phase 16: packed device ingest at full width (run_test, '
+        f'shipped defaults: bf16, packed_batch {PACKED_BATCH}, '
+        f'packed_frames {PACKED_FRAMES}) on {len(videos)} videos, and the '
+        f'same videos one at a time (testing.packed: false), in turns; '
+        f'{card_line()}')
+    forwards, full, flushes, n_windows = ingest_plan(
+        [(t, c, 0) for t, c, _ in videos.values()])
+    assert flushes >= 2 and full >= 2 and forwards > full, \
+        (forwards, full, flushes)
+    cfgs = {'packed': load_config(CONFIG, overrides=dict(
+        packed_overrides(root, dirs), **{'testing.output_json':
+                                         'packed.json'})),
+            'per_video': load_config(CONFIG, overrides=dict(
+                packed_overrides(root, dirs), **{
+                    'testing.packed': False,
+                    'testing.output_json': 'per_video.json'}))}
+    path, wall, cnt, peak = timed_run(cfgs['packed'])
+    n_props = check_detection_json(path, videos)
+    assert cnt == (POOLS_PER_FORWARD * forwards, 0, 0, 0), (cnt, forwards)
+    launches = cnt[0]
+    log(f'{n_windows} windows in {flushes} flushes, {forwards} forwards of '
+        f'{PACKED_BATCH} (at least {full} full); B1 launches {cnt[0]} '
+        f'({POOLS_PER_FORWARD} per forward); {n_props} proposals; first '
+        f'run {wall:.3f} s, {n_windows / wall:.2f} windows/s, peak '
+        f'{peak:.2f} GiB')
+    walls = {'packed': [], 'per_video': []}
+    peaks = {}
+    for mode in ('per_video', 'packed', 'packed', 'per_video'):
+        path, wall, cnt, peak = timed_run(cfgs[mode])
+        check_detection_json(path, videos)
+        walls[mode].append(wall)
+        peaks[mode] = max(peaks.get(mode, 0.0), peak)
+        if mode == 'packed':
+            assert cnt[0] == POOLS_PER_FORWARD * forwards, cnt
+    for mode, ws in walls.items():
+        log(f'{mode}: warm runs in turns {[round(w, 3) for w in ws]} s, '
+            f'{[round(n_windows / w, 2) for w in ws]} windows/s, peak '
+            f'{peaks[mode]:.2f} GiB')
+    share = busy_share(lambda: run_test(cfgs['packed']),
+                       'packed run_test (warm)')
+    parts = timed_parts(cfgs['packed'], 'packed run_test (warm)')
+    return {'launches': launches, 'forwards': forwards,
+            'windows': n_windows, 'share': share, 'parts': parts}
+
+
+def phase_packed_f32(root, dirs, videos):
+    log('== phase 17: packed vs per-video and host-staged vs device '
+        'ingest, f32, TF32 off, on the first four packed videos '
+        '(packed_batch 32, packed_frames 2048: windows of two videos in '
+        'one forward, three flushes)')
+    subset = list(videos.items())[:F32_SUBSET]
+    forwards, _, flushes, _ = ingest_plan([v for _, v in subset], 2048,
+                                          32)
+    assert flushes == 3, flushes
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paths = {}
+    try:
+        for mode, extra in (('packed', {}),
+                            ('per_video', {'testing.packed': False}),
+                            ('host_packed', {'testing.device_ingest': False}),
+                            ('host_per_video', {
+                                'testing.device_ingest': False,
+                                'testing.packed': False})):
+            cfg = load_config(CONFIG, overrides=dict(
+                packed_overrides(root, dirs, 'subset_info.csv'), **extra, **{
+                    'model.compute_dtype': 'float32',
+                    'testing.packed_batch': 32,
+                    'testing.packed_frames': 2048,
+                    'testing.output_json': f'f32_{mode}.json'}))
+            paths[mode], wall, cnt, _ = timed_run(cfg)
+            check_detection_json(paths[mode], dict(subset))
+            if mode == 'packed':
+                assert cnt[0] == POOLS_PER_FORWARD * forwards, cnt
+            log(f'{mode}: {wall:.3f} s, B1 launches {cnt[0]}')
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    for mode in ('per_video', 'host_packed', 'host_per_video'):
+        worst = assert_same_json(paths['packed'], paths[mode], mode)
+        log(f'{mode} == packed device ingest per proposal (rtol 1e-4): '
+            f'largest relative score difference {worst:.3g}')
+
+
+def flow_state_dict(cfg):
+    return factory.init_weights(factory.build_model(
+        cfg, frame_num=FRAMES, crop_size=CROP, dtype=torch.float32,
+        in_channels=2), seed=1).state_dict()
+
+
+def build_flow_model(state_dict, dtype, stem_pallas=False) -> BDNet:
+    m = BDNet(in_channels=2, num_classes=CLASSES, os_head=True,
+              use_edl=True, evidence='exp', frame_num=FRAMES,
+              crop_size=CROP, stem_pallas=stem_pallas,
+              dtype=None if dtype == torch.float32 else dtype)
+    m.load_state_dict(state_dict, strict=True)
+    return m.to('cuda').eval()
+
+
+def phase_fused_kernels(state_dict, flow_sd):
+    """B1 on the pool inputs of one fused W=128 forward (both streams) and
+    B4 at C = 2 (the flow stream's stem), each against its plain version
+    exactly; B4 at C = 2 timed."""
+    log('== phase 18: the kernels at the fused packed forward\'s shapes '
+        '(W=128, bf16): B1 on both streams\' pool inputs, B4 at C = 2')
+    g = torch.Generator(device='cuda').manual_seed(21)
+    flow_u8 = torch.randint(0, 256, (PACKED_BATCH, 2, FRAMES, CROP, CROP),
+                            generator=g, device='cuda', dtype=torch.uint8)
+    flow_clips = (flow_u8.to(torch.bfloat16) / 255.0) * 2.0 - 1.0
+    del flow_u8
+    calls = capture_pool_inputs(build_flow_model(flow_sd, torch.bfloat16),
+                                flow_clips)
+    clips = random_clips(PACKED_BATCH, seed=22).to(torch.bfloat16)
+    calls += capture_pool_inputs(build_model(state_dict, torch.bfloat16,
+                                             'cuda'), clips)
+    del clips
+    torch.cuda.empty_cache()
+    b1_err = 0.0
+    for x, seg, levels in calls:
+        got, _ = boundary_pool_cuda.boundary_max_pool_fwd(x, seg,
+                                                          levels=levels)
+        with boundary_pool.force_plain():
+            want = boundary_pool.boundary_max_pool_segmented(x, seg, levels)
+        b1_err = max(b1_err, (got.float() - want.float()).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f'B1 != plain at W=128: {tuple(x.shape)}')
+    log(f'B1 == plain exactly on the {len(calls)} pool calls of a fused '
+        f'W=128 forward (x {[tuple(c[0].shape) for c in calls]})')
+    del calls
+    torch.cuda.empty_cache()
+    out = {}
+    for w, dtype in ((PACKED_BATCH, torch.bfloat16), (32, torch.bfloat16),
+                     (32, torch.float32)):
+        xp = layers.space_to_depth_pad(flow_clips[:w].to(dtype),
+                                       STEM_KERNEL)
+        assert xp.shape[-1] == 2 and stem_pack_cuda.plan(xp, 1, 1) == \
+            'frame_bulk'
+        got = stem_pack_cuda.stem_pack96_v2(xp)
+        want = stem_pack.stem_pack96_v2_plain(xp)
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f'B4 != plain at C = 2, W={w} {dtype}: '
+                                 f'{err}')
+        assert got.shape[2] == 64, got.shape
+        del got, want
+        if dtype == torch.bfloat16:
+            r = {'ms': device_ms(lambda: stem_pack_cuda.stem_pack96_v2(xp),
+                                 reps=10 if w > 32 else 20),
+                 'plain_ms': device_ms(
+                     lambda: stem_pack.stem_pack96_v2_plain(xp), reps=2),
+                 'library_ms': device_ms(lambda: stem_pack.stem_pack_strided(
+                     xp, layout='v2'), reps=5),
+                 'bound_ms': pack_bound_ms(xp), 'max_abs_err': err}
+            out[w] = r
+            log(f'B4 C=2 W={w} bf16, xp {tuple(xp.shape)}: kernel '
+                f'{r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f}, library '
+                f'{r["library_ms"]:.4f}, bound {r["bound_ms"]:.4f} '
+                f'({r["bound_ms"] / r["ms"]:.3f} of it); {card_line()}')
+        else:
+            log(f'B4 == plain exactly at C = 2, W={w} f32')
+        del xp
+        torch.cuda.empty_cache()
+    del flow_clips
+    torch.cuda.empty_cache()
+    return b1_err, out
+
+
+def phase_fusion(root, dirs, videos):
+    log(f'== phase 19: RGB + flow fusion, packed device ingest at full '
+        f'width (run_test, bf16) with model.stem_pallas off and on; '
+        f'{card_line()}')
+    forwards, _, _, n_windows = ingest_plan(videos.values())
+    res = {}
+    for stem in (False, True):
+        cfg = load_config(CONFIG, overrides=dict(
+            packed_overrides(root, dirs), **{
+                'testing.fusion': True, 'model.stem_pallas': stem,
+                'testing.output_json': f'fused_{stem}.json'}))
+        path, wall, cnt, peak = timed_run(cfg)
+        n_props = check_detection_json(path, videos)
+        assert cnt == (FUSED_POOLS * forwards, 0, 0,
+                       2 * forwards if stem else 0), (cnt, forwards)
+        res[stem] = {'counts': cnt, 'wall': wall, 'peak': peak}
+        log(f'stem_pallas {stem}: {n_props} proposals; launches B1 {cnt[0]} '
+            f'({FUSED_POOLS} per fused forward), B4 {cnt[3]}; first fused '
+            f'run {wall:.3f} s ({n_windows / wall:.2f} windows/s), peak '
+            f'{peak:.2f} GiB')
+    return res
+
+
+def phase_threshold(root, dirs, videos):
+    log('== phase 20: threshold calibration (tools.threshold --fusion) '
+        'over the packed videos as the training set')
+    import yaml
+    with open(CONFIG) as f:
+        raw = yaml.safe_load(f)
+    for dotted, value in dict(packed_overrides(root, dirs), **{
+            'testing.output_path': os.path.join(root, 'out_threshold')
+            }).items():
+        cur = raw
+        *parents, leaf = dotted.split('.')
+        for p in parents:
+            cur = cur.setdefault(p, {})
+        cur[leaf] = value
+    cfg_path = os.path.join(root, 'threshold.yaml')
+    with open(cfg_path, 'w') as f:
+        yaml.safe_dump(raw, f)
+    forwards = ingest_plan(videos.values())[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    threshold_cli.main([cfg_path, '--fusion', '--output_json',
+                        'thresholding.json'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cnt = counts()
+    with open(os.path.join(root, 'out_threshold', 'thresholding.json')) as f:
+        payload = json.load(f)
+    thr = payload['external_data']['threshold']
+    assert set(payload['results']) == set(videos)
+    assert math.isfinite(thr) and 0.0 <= thr <= 1.0, thr
+    assert cnt == (FUSED_POOLS * forwards, 0, 0, 0), (cnt, forwards)
+    log(f'threshold {thr} (confidence scoring, 95% TPR) over '
+        f'{sum(len(v) for v in payload["results"].values())} proposals; '
+        f'{wall:.3f} s; B1 launches {cnt[0]}')
+    return thr, cnt[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false: this run '
@@ -1432,6 +1931,23 @@ def main() -> int:
     try:
         launches, lengths, warm_off = phase_end_to_end(state_dict, root)
         v2_launches = phase_end_to_end_stem(root, lengths, warm_off)
+        t0 = time.perf_counter()
+        dirs, videos = write_packed_dataset(root)
+        flow_sd = flow_state_dict(cfg)
+        torch.save(flow_sd, os.path.join(root, 'flow.ckpt'))
+        log(f'packed videos and flow weights written in '
+            f'{time.perf_counter() - t0:.1f} s')
+        packed = phase_packed(root, dirs, videos)
+        phase_packed_f32(root, dirs, videos)
+        b1_w128_err, b4_flow = phase_fused_kernels(state_dict, flow_sd)
+        fused = phase_fusion(root, dirs, videos)
+        threshold, thr_launches = phase_threshold(root, dirs, videos)
+        shutil.rmtree(dirs['rgb'])
+        shutil.rmtree(dirs['flow'])
+        launches += packed['launches'] + fused[False]['counts'][0] \
+            + fused[True]['counts'][0] + thr_launches
+        v2_launches += fused[True]['counts'][3]
+        max_err = max(max_err, b1_w128_err)
         train_fwd, train_bwd, train_cfg = phase_train_end_to_end(root)
         v1_launches = phase_train_end_to_end_stem(root, train_cfg)
         phase_train_speed(cfg)
@@ -1439,10 +1955,13 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    log(f'boundary_max_pool_fwd launches: {launches} in the inference run, '
+    log(f'boundary_max_pool_fwd launches: {launches} in the inference runs '
+        f'(per-video set, packed, fused off and on, calibration), '
         f'{train_fwd} in the training run; stem pack v2 {v2_launches} in '
-        f'the stem_pallas inference run, v1 {v1_launches} in the '
-        f'stem_pallas training run')
+        f'the stem_pallas inference runs (per-video set, fused), v1 '
+        f'{v1_launches} in the stem_pallas training run; B4 at C = 2 '
+        f'(W=128 bf16) {b4_flow[PACKED_BATCH]}, W=32 {b4_flow[32]}; '
+        f'threshold {threshold}')
     log(f'total {time.perf_counter() - t_start:.1f} s')
     source = 'opental_torch/csrc/boundary_pool.cu'
     v1 = pack_times[('v1', torch.float32, 1)]

@@ -1,23 +1,78 @@
-"""Background input prefetch onto the device.
+"""Background prefetch on a host thread.
 
 Counterpart of `opental_tpu/data/prefetch.py` (the reference's 4
-DataLoader workers, AFSD/thumos14/train.py:345). A thread assembles batch
-i+1 while step i runs: it pins each numpy array and copies it to the
-card with `non_blocking=True` on a side stream, so the copy overlaps the
-step's kernels; the consumer's stream waits on the copy's event before
-the batch is used. On the CPU the arrays are wrapped as they are.
+DataLoader workers, AFSD/thumos14/train.py:345). `prefetch_items` is the
+JAX package's `prefetch(iterable, transform, depth)`: a thread computes
+`transform(item)` `depth` items ahead (loading the next video from disk,
+staging the next frame buffer) while the consumer works on the current
+one. `prefetch` builds the training input on it: the thread pins each
+numpy array of a batch and copies it to the card with `non_blocking=True`
+on a side stream, so the copy overlaps the step's kernels; the
+consumer's stream waits on the copy's event before the batch is used. On
+the CPU the arrays are wrapped as they are.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
-from typing import Dict, Iterable, Iterator
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
 _DONE = object()
+
+
+def prefetch_items(iterable: Iterable[Any],
+                   transform: Optional[Callable[[Any], Any]] = None,
+                   depth: int = 2) -> Iterator[Any]:
+    """Yield `transform(item)` (or the item) for each item, computed
+    `depth` items ahead on a background thread that starts at once. An
+    exception in the thread re-raises at the consumer; leaving the loop
+    early (or closing the iterator) stops the thread."""
+    q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterable:
+                if not put(item if transform is None else transform(item)):
+                    return
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            put((_DONE, e))
+            return
+        put((_DONE, None))
+
+    thread = threading.Thread(target=worker, daemon=True,
+                              name='opental-torch-prefetch')
+    thread.start()
+
+    def consume():
+        try:
+            while True:
+                item = q.get()
+                if isinstance(item, tuple) and len(item) == 2 \
+                        and item[0] is _DONE:
+                    if item[1] is not None:
+                        raise item[1]
+                    return
+                yield item
+        finally:
+            stop.set()
+            thread.join(timeout=10)
+
+    return consume()
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
@@ -37,56 +92,24 @@ def prefetch(batches: Iterable[Dict[str, np.ndarray]],
              device: torch.device, depth: int = 2
              ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield each numpy batch as tensors on `device`, assembled and copied
-    `depth` batches ahead on a background thread. An exception in the
-    thread re-raises at the consumer; leaving the loop early stops the
-    thread."""
-    q: queue.Queue = queue.Queue(maxsize=max(1, depth))
-    stop = threading.Event()
+    `depth` batches ahead on a background thread (`prefetch_items`)."""
     cuda = device.type == 'cuda'
+    stream = torch.cuda.Stream(device) if cuda else None
 
-    def put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
+    def place(batch):
+        if not cuda:
+            return to_device(batch, device), None
+        with torch.cuda.stream(stream):
+            placed = to_device(batch, device)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return placed, ready
 
-    def worker():
-        stream = torch.cuda.Stream(device) if cuda else None
-        try:
-            for batch in batches:
-                if cuda:
-                    with torch.cuda.stream(stream):
-                        placed = to_device(batch, device)
-                        ready = torch.cuda.Event()
-                        ready.record(stream)
-                else:
-                    placed, ready = to_device(batch, device), None
-                if not put((placed, ready)):
-                    return
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            put((_DONE, e))
-            return
-        put((_DONE, None))
-
-    thread = threading.Thread(target=worker, daemon=True,
-                              name='opental-torch-prefetch')
-    thread.start()
-    try:
-        while True:
-            placed, ready = q.get()
-            if placed is _DONE:
-                if ready is not None:
-                    raise ready
-                return
+    with contextlib.closing(prefetch_items(batches, place, depth)) as items:
+        for placed, ready in items:
             if ready is not None:
                 current = torch.cuda.current_stream(device)
                 current.wait_event(ready)
                 for t in placed.values():
                     t.record_stream(current)
             yield placed
-    finally:
-        stop.set()
-        thread.join(timeout=10)

@@ -34,12 +34,22 @@ def model_flags(cfg: Config) -> Dict[str, Any]:
 
 def build_model(cfg: Config, frame_num: Optional[int] = None,
                 crop_size: Optional[int] = None,
-                dtype: Optional[torch.dtype] = None) -> BDNet:
+                dtype: Optional[torch.dtype] = None,
+                in_channels: Optional[int] = None) -> BDNet:
     """The THUMOS BDNet a config describes. Train and eval are the
     module's modes (`.train()` turns on dropout and, with
     `model.freeze_bn: false`, batch-statistics BN). dtype None reads
-    `model.compute_dtype` (bfloat16 | float32, default float32)."""
+    `model.compute_dtype` (bfloat16 | float32, default float32).
+    in_channels overrides `model.in_channels` (2 for the flow stream of
+    two-stream fusion).
+
+    `model.trunk_tfold` and `model.remat` are read by the JAX factory
+    (`opental_tpu/factory.py:58-64`) and select a formulation of the same
+    math (a folded trunk; recomputing activations in the backward): the
+    port has one formulation, so they change nothing here."""
     flags = model_flags(cfg)
+    if in_channels is not None:
+        flags['in_channels'] = in_channels
     for flag in ('use_rpl', 'transformer'):
         if flags[flag]:
             raise NotImplementedError(f'model.{flag} is not ported yet')

@@ -1,27 +1,44 @@
 """Window-batched video inference pipeline (PyTorch).
 
-Counterpart of `opental_tpu/infer/pipeline.py:28-489, 1227-1406`;
-reference AFSD/thumos14/test.py:203-256. A video's raw uint8 frames go
-to the device once; windows are gathered and normalized there
-(`device_windows`), run through the model and decoded in batches, and
-post-processing runs either fused on the device (per-class top-k
-preselect + batched soft-NMS, the default) or on the host (numpy
-soft-NMS per class, the reference's semantics). Output JSON matches
-test.py:254-256.
+Counterpart of `opental_tpu/infer/pipeline.py` (all but the
+shared-backbone mode, which raises); reference AFSD/thumos14/
+test.py:203-256. Windows of 256 frames at stride 128 run through the
+model (and, for two-stream fusion, the flow model, with every head
+averaged) and are decoded in batches; post-processing runs either fused
+on the device (per-class top-k preselect + batched soft-NMS, the
+default) or on the host (numpy soft-NMS per class, the reference's
+semantics; with `device_nms` each class's block on the device).
+
+Ingest modes, as the JAX package's (`run_videos` routes):
+* device ingest (default): a video's raw uint8 frames go to the device
+  once and windows are gathered and normalized there
+  (`device_windows`). Over a dataset (`run_videos_ingest`) consecutive
+  videos pack into one frame buffer of `frames_capacity` frames per
+  flush, staged on a background thread while the previous flush
+  computes, and windows batch into full `max_batch` forwards across
+  video boundaries;
+* host staging (`device_ingest=False`): windows are cut on the host,
+  as float32 per video (`stack_windows`) or as uint8 packed across
+  videos (`stack_windows_u8` + `ingest_windows`).
+Every mode gives each window the same input, so the proposals agree.
+Output JSON matches test.py:254-256.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from opental_torch import resolve_device
 from opental_torch.data import transforms
-from opental_torch.infer.decode import DecodedWindows, decode_windows
+from opental_torch.data.prefetch import prefetch_items
+from opental_torch.infer.decode import (DecodedWindows, decode_windows,
+                                        fuse_streams)
 from opental_torch.ops.nms import soft_nms_device, soft_nms_numpy
 
 
@@ -36,44 +53,180 @@ def window_offsets(sample_count: int, clip_length: int,
     return offsets
 
 
+def _bucket(n: int, granule: int = 8) -> int:
+    """n rounded up to a multiple of granule (at least one granule)."""
+    return max(granule, ((n + granule - 1) // granule) * granule)
+
+
+def _require_u8(data: np.ndarray, what: str = 'frames') -> None:
+    """uint8-staging intake guard: numpy assignment of float frames into
+    a uint8 buffer truncates silently (127.5 -> 127, which normalizes to
+    -0.0039 instead of the reference pad's exact 0.0). Callers with float
+    videos must ship raw uint8 + a padded sample_count instead."""
+    if data.dtype != np.uint8:
+        raise TypeError(
+            f'uint8 staging requires raw uint8 {what}, got {data.dtype}; '
+            'float frames would be silently truncated: ship the raw '
+            'uint8 npy (pad via sample_count, not host pad values)')
+
+
+def stage_frames(buf: Union[np.ndarray, torch.Tensor],
+                 chunk_frames: Optional[int] = None,
+                 pad_to: Optional[int] = None,
+                 device: Optional[Union[str, torch.device]] = 'cpu'
+                 ) -> torch.Tensor:
+    """Host (T, ...) frames -> a (pad_to or T, ...) tensor on `device`,
+    zero past T. The padding is written on the device, so only the real
+    frames cross the link; to a card the copy is one non-blocking copy
+    from pinned memory (pass a pinned tensor to save the extra host copy
+    that pinning a numpy buffer takes) on the current stream.
+    `chunk_frames` is the JAX signature's chunk size, a hint only: the
+    whole buffer goes in one copy."""
+    del chunk_frames
+    src = torch.from_numpy(np.ascontiguousarray(buf)) \
+        if isinstance(buf, np.ndarray) else buf
+    n = src.shape[0]
+    if pad_to is not None and pad_to < n:
+        raise ValueError(f'pad_to {pad_to} < frames {n}')
+    out = torch.empty((n if pad_to is None else pad_to,) + src.shape[1:],
+                      dtype=src.dtype, device=device)
+    out[n:].zero_()
+    cuda = out.is_cuda
+    if cuda and not src.is_pinned():
+        src = src.pin_memory()
+    out[:n].copy_(src, non_blocking=cuda)
+    return out
+
+
+def ingest_windows(clips_u8: torch.Tensor, valid: torch.Tensor
+                   ) -> torch.Tensor:
+    """(Wc, clip, H, W, C) uint8 windows -> (Wc, C, clip, H, W) float32 in
+    [-1, 1], the model's layout, with frames >= valid (Wc,) zeroed after
+    normalization (the reference's zero pad, test.py:67-76)."""
+    steps = torch.arange(clips_u8.shape[1], device=clips_u8.device)
+    keep = steps < valid.reshape(-1, 1)                     # (Wc, clip)
+    # divide by a tensor on the device: PyTorch turns a division by a
+    # Python number on the card into a multiplication by its reciprocal,
+    # one ulp off the host path's (and the reference's) true division.
+    # `full` fills it on the device (torch.tensor would copy from the
+    # host and synchronize the stream)
+    scale = torch.full((), 255.0, device=clips_u8.device)
+    x = (clips_u8.permute(0, 4, 1, 2, 3).float() / scale) * 2.0 - 1.0
+    return torch.where(keep[:, None, :, None, None], x, 0.0).contiguous()
+
+
 def device_windows(video_u8: torch.Tensor, offsets: torch.Tensor,
                    frames_valid: Union[int, torch.Tensor],
                    clip_length: int) -> torch.Tensor:
     """Window gather + normalization on the video's device.
 
     video_u8: (Tp, H, W, C) uint8 holding every window's frames; offsets:
-    (Wc,) int64; frames >= frames_valid (a scalar or (Wc,)) are zero after
-    normalization, as the reference pads (test.py:67-76). Returns
-    (Wc, C, clip, H, W) float32 in [-1, 1], the model's layout.
+    (Wc,) int64; frames >= frames_valid (a scalar, or (Wc,) when the
+    buffer packs several videos: a window whose tail reads the next
+    video's frames zeroes them) are zero after normalization. Returns
+    (Wc, C, clip, H, W) float32 in [-1, 1].
     """
     steps = torch.arange(clip_length, device=video_u8.device)
-    idx = offsets[:, None] + steps                          # (Wc, clip)
-    win = video_u8[idx].permute(0, 4, 1, 2, 3)              # (Wc, C, clip, H, W)
-    x = (win.float() / 255.0) * 2.0 - 1.0
-    valid = torch.as_tensor(frames_valid, device=video_u8.device)
-    keep = idx < valid.reshape(-1, 1)
-    return torch.where(keep[:, None, :, None, None], x, 0.0).contiguous()
+    # `frames_valid - offsets`, not as_tensor(frames_valid): a Python
+    # number copied to the card would synchronize the host per batch
+    return ingest_windows(video_u8[offsets[:, None] + steps],
+                          frames_valid - offsets)
+
+
+def stack_windows(data: np.ndarray, offsets: Sequence[int],
+                  clip_length: int) -> np.ndarray:
+    """(T, H, W, C) uint8 video -> (W, clip, H, W, C) float32 in [-1, 1];
+    zero-pads short tails (test.py:67-76). (The JAX package pads the
+    window count to a bucket to bound its recompiles; nothing here needs
+    it.)"""
+    t, h, w, c = data.shape
+    out = np.zeros((len(offsets), clip_length, h, w, c), np.float32)
+    for i, off in enumerate(offsets):
+        clip = data[off:off + clip_length].astype(np.float32)
+        out[i, :clip.shape[0]] = (clip / 255.0) * 2.0 - 1.0
+    return out
+
+
+def stack_windows_u8(data: np.ndarray, offsets: Sequence[int],
+                     clip_length: int) -> Tuple[np.ndarray, np.ndarray]:
+    """stack_windows' uint8 twin for the host-staged packed path (4x
+    fewer bytes over the link): ((W, clip, H, W, C) uint8, (W,) int32
+    frames-valid); `ingest_windows` normalizes on the device."""
+    _require_u8(data)
+    t, h, w, c = data.shape
+    out = np.zeros((len(offsets), clip_length, h, w, c), np.uint8)
+    valid = np.zeros((len(offsets),), np.int32)
+    for i, off in enumerate(offsets):
+        clip = data[off:off + clip_length]
+        out[i, :clip.shape[0]] = clip
+        valid[i] = clip.shape[0]
+    return out, valid
+
+
+def _cat_decoded(parts: Sequence[DecodedWindows]) -> DecodedWindows:
+    def cat(field):
+        xs = [getattr(p, field) for p in parts]
+        return None if xs[0] is None else (
+            xs[0] if len(xs) == 1 else torch.cat(xs))
+    return DecodedWindows(*(cat(f) for f in DecodedWindows._fields))
+
+
+def _slice_decoded(dec: DecodedWindows, lo: int, hi: int
+                   ) -> DecodedWindows:
+    return DecodedWindows(*(None if a is None else a[lo:hi] for a in dec))
+
+
+def _new_video(name, offsets, fps, **extra) -> Dict[str, Any]:
+    """Scheduler record of an open video: decoded rows arrive in `got`
+    until `need` reaches 0."""
+    return dict(name=name, offsets=offsets, fps=fps, need=len(offsets),
+                got=[], **extra)
+
+
+def _route_rows(vids: List[Dict[str, Any]], dec: DecodedWindows,
+                n_rows: int, first: int = 0) -> int:
+    """Hand the first `n_rows` decoded rows to the open videos in FIFO
+    order from `vids[first]`; returns the index of the first video still
+    open."""
+    r, vi = 0, first
+    while r < n_rows:
+        vid = vids[vi]
+        take = min(vid['need'], n_rows - r)
+        vid['got'].append(_slice_decoded(dec, r, r + take))
+        vid['need'] -= take
+        r += take
+        if vid['need'] == 0:
+            vi += 1
+    return vi
 
 
 class InferencePipeline:
-    """Forward + decode over window batches for one model.
+    """Forward + decode over window batches for one model, or for an RGB
+    and a flow model fused (`flow_model`, the 2-channel BDNet: the two
+    run in sequence on the same stream and every head is averaged).
 
-    The model (a port BDNet with its weights) moves to `device`, the card
-    unless the caller asks for the CPU. device_post=True (default) runs
-    the fused device post-processing; False the host numpy path.
-    n_candidates bounds the per-class device preselect (2048, the THUMOS
-    CLI's default).
+    The models (port BDNets with their weights) move to `device`, the
+    card unless the caller asks for the CPU. device_post=True (default)
+    runs the fused device post-processing, False the host path, where
+    device_nms=True runs each class's soft-NMS on the device.
+    device_ingest=True (default) gathers windows from the raw frames on
+    the device, False stages them on the host. n_candidates bounds the
+    per-class device preselect (2048, the THUMOS CLI's default).
     """
 
     def __init__(self, model: torch.nn.Module, clip_length: int = 256,
                  stride: int = 128, crop_size: int = 96,
                  conf_thresh: float = 0.01, top_k: int = 5000,
                  nms_sigma: float = 0.5, use_edl: bool = False,
-                 os_head: bool = False, evidence: str = 'exp', device_post: bool = True,
-                 n_candidates: int = 2048,
+                 os_head: bool = False, evidence: str = 'exp',
+                 flow_model: Optional[torch.nn.Module] = None,
+                 device_nms: bool = False, device_post: bool = True,
+                 n_candidates: int = 2048, device_ingest: bool = True,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.flow_model = (None if flow_model is None
+                           else flow_model.to(self.device).eval())
         self.clip_length = clip_length
         self.stride = stride
         self.crop_size = crop_size
@@ -84,57 +237,95 @@ class InferencePipeline:
         self.os_head = os_head
         self.evidence = evidence
         self.num_classes = model.head_classes
+        self.device_nms = device_nms
         self.device_post = device_post
         self.n_candidates = n_candidates
+        self.device_ingest = device_ingest
 
-    def forward_decode(self, clips: torch.Tensor) -> DecodedWindows:
-        """(W, C, T, H, W) clips -> decoded windows, on the device."""
+    # ------------------------------------------------------------ forward
+
+    def forward_decode(self, clips: torch.Tensor,
+                       flow_clips: Optional[torch.Tensor] = None
+                       ) -> DecodedWindows:
+        """(W, C, T, H, W) clips (and the flow stream's) -> decoded
+        windows, on the device."""
         with torch.inference_mode():
             out = self.model(clips)
+            if flow_clips is not None:
+                out = fuse_streams(out, self.flow_model(flow_clips))
             return decode_windows(
                 out, self.clip_length, use_edl=self.use_edl,
                 os_head=self.os_head,
                 score_func='dirichlet' if self.use_edl else 'softmax',
                 evidence=self.evidence)
 
+    def _fusion(self, flow_data) -> bool:
+        """Whether a video runs fused; a fusion pipeline needs its flow
+        frames and a single-stream one takes none."""
+        if (flow_data is None) != (self.flow_model is None):
+            raise ValueError('flow frames are needed exactly when the '
+                             'pipeline has a flow model')
+        return flow_data is not None
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == 'cuda':
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # ---------------------------------------------------------- per video
+
     def decode_video(self, data: np.ndarray, sample_count: int,
-                     max_batch: int = 32):
-        """Windows of one (T, H, W, C) uint8 video through forward +
-        decode. Returns (DecodedWindows over all windows, offsets)."""
-        if data.dtype != np.uint8:
-            raise TypeError(f'video frames must be uint8, got {data.dtype}')
-        data = np.ascontiguousarray(
-            transforms.center_crop(data, self.crop_size))
+                     max_batch: int = 32,
+                     flow_data: Optional[np.ndarray] = None):
+        """Windows of one (T, H, W, C) uint8 video (and its flow frames)
+        through forward + decode. Returns (DecodedWindows over all
+        windows, offsets)."""
+        fusion = self._fusion(flow_data)
+        _require_u8(data)
+        data = transforms.center_crop(data, self.crop_size)
+        streams = [data]
+        if fusion:
+            _require_u8(flow_data, 'flow frames')
+            streams.append(transforms.center_crop(flow_data,
+                                                  self.crop_size))
         offsets = window_offsets(sample_count, self.clip_length,
                                  self.stride)
-        t = data.shape[0]
-        # the buffer holds every window slice, also when the npy is
-        # shorter than sample_count; frames past the video are zeros
-        need = max(max(offsets) + self.clip_length, t)
-        video = torch.zeros((need,) + data.shape[1:], dtype=torch.uint8,
-                            device=self.device)
-        video[:t] = torch.from_numpy(data).to(self.device)
-        valid = min(t, sample_count)
-        offs = torch.as_tensor(offsets, dtype=torch.int64,
-                               device=self.device)
-        parts = [self.forward_decode(device_windows(
-            video, offs[i:i + max_batch], valid, self.clip_length))
-            for i in range(0, len(offsets), max_batch)]
-
-        def cat(field):
-            xs = [getattr(p, field) for p in parts]
-            return None if xs[0] is None else torch.cat(xs)
-
-        return DecodedWindows(*(cat(f) for f in DecodedWindows._fields)), \
-            offsets
+        chunks = range(0, len(offsets), max_batch)
+        if self.device_ingest:
+            offs = self._to_device(np.asarray(offsets, np.int64))
+            # each stream's buffer holds every window slice, also when
+            # the npy is shorter than sample_count; each stream keeps its
+            # own frames-valid (a flow npy may be a frame shorter)
+            staged = [(stage_frames(s, pad_to=max(offsets[-1]
+                                                  + self.clip_length,
+                                                  s.shape[0]),
+                                    device=self.device),
+                       min(s.shape[0], sample_count)) for s in streams]
+            batches = ([device_windows(buf, offs[i:i + max_batch], valid,
+                                       self.clip_length)
+                        for buf, valid in staged] for i in chunks)
+        else:
+            stacked = [stack_windows(s, offsets, self.clip_length)
+                       for s in streams]
+            batches = ([self._to_device(w[i:i + max_batch]).permute(
+                0, 4, 1, 2, 3).contiguous() for w in stacked]
+                for i in chunks)
+        parts = [self.forward_decode(*clips) for clips in batches]
+        return _cat_decoded(parts), offsets
 
     def run_video(self, data: np.ndarray, sample_count: int,
-                  sample_fps: float, max_batch: int = 32
-                  ) -> List[Dict[str, Any]]:
-        """data: (T, H, W, C) uint8 full video. Returns the per-video
-        proposal list (label idx, score, segment seconds, uncertainty,
-        actionness)."""
-        dec, offsets = self.decode_video(data, sample_count, max_batch)
+                  sample_fps: float, flow_data: Optional[np.ndarray] = None,
+                  max_batch: int = 32) -> List[Dict[str, Any]]:
+        """data: (T, H, W, C) uint8 full video (flow_data its (T', H, W, 2)
+        flow frames for fusion). Returns the per-video proposal list
+        (label idx, score, segment seconds, uncertainty, actionness)."""
+        dec, offsets = self.decode_video(data, sample_count, max_batch,
+                                         flow_data)
+        return self._post(dec, offsets, sample_fps)
+
+    def _post(self, dec: DecodedWindows, offsets: Sequence[int],
+              sample_fps: float) -> List[Dict[str, Any]]:
         if self.device_post:
             return self.post_process_on_device(dec, offsets, sample_fps)
         off = np.asarray(offsets, np.float32)[:, None, None]
@@ -147,19 +338,242 @@ class InferencePipeline:
                                  host(dec.uncertainty),
                                  host(dec.actionness))
 
+    def _finish_packed(self, vid: Dict[str, Any],
+                       results: Dict[str, List[Dict[str, Any]]]) -> None:
+        """Post-process one finished video from its collected decode
+        rows (still on the device), as run_video does."""
+        results[vid['name']] = self._post(_cat_decoded(vid['got']),
+                                          vid['offsets'], vid['fps'])
+
+    # -------------------------------------------------------- per dataset
+
     def run_videos(self, videos, max_batch: int = 128,
                    frames_capacity: int = 32768
                    ) -> Dict[str, List[Dict[str, Any]]]:
-        """videos: iterable of (name, data, sample_count, sample_fps),
-        consumed lazily. Returns {name: proposals}. Each video runs
-        through run_video in batches of at most `max_batch` windows;
-        cross-video packing (frames_capacity) is not ported yet."""
+        """Packed cross-video inference: windows of consecutive videos
+        fill forwards of `max_batch` windows (the tail batch zero-pads),
+        so short videos do not underfill the device.
+
+        videos: iterable of (name, data, sample_count, sample_fps), with
+        the flow frames as a fifth item for fusion, consumed lazily.
+        Returns {name: proposals}. With device ingest the videos' raw
+        frames pack into device frame buffers (`run_videos_ingest`);
+        otherwise uint8 windows are cut and packed on the host, as below.
+        """
+        if self.device_ingest:
+            return self.run_videos_ingest(videos, max_batch=max_batch,
+                                          frames_capacity=frames_capacity)
+        fusion = self.flow_model is not None
+        pending: List[Dict[str, Any]] = []   # FIFO of open videos
+        queues: List[List[np.ndarray]] = [[] for _ in range(
+            4 if fusion else 2)]             # windows, valids (, flow's)
+        buffered = 0
         results: Dict[str, List[Dict[str, Any]]] = {}
+
+        def cat_pad(arrs, pad_to):
+            batch = np.concatenate(arrs) if len(arrs) > 1 else arrs[0]
+            if pad_to is not None and batch.shape[0] < pad_to:
+                pad = np.zeros((pad_to - batch.shape[0],) + batch.shape[1:],
+                               batch.dtype)
+                batch = np.concatenate([batch, pad])
+            return batch
+
+        def split_queue(arrs, cap):
+            """Split an exactly-`cap` window batch off the queue front;
+            depends only on leading dims, so parallel queues split
+            alike."""
+            head, rest, acc = [], [], 0
+            for a in arrs:
+                if acc + a.shape[0] <= cap:
+                    head.append(a)
+                    acc += a.shape[0]
+                elif acc < cap:
+                    head.append(a[:cap - acc])
+                    rest.append(a[cap - acc:])
+                    acc = cap
+                else:
+                    rest.append(a)
+            return head, rest
+
+        def flush(heads, n_rows, pad_to=None):
+            """Forward one batch (pad rows carry valid 0: all-zero
+            frames) and hand its rows to the open videos in order."""
+            arrs = [self._to_device(cat_pad(q, pad_to)) for q in heads]
+            clips = [ingest_windows(arrs[j], arrs[j + 1])
+                     for j in range(0, len(arrs), 2)]
+            _route_rows(pending, self.forward_decode(*clips), n_rows)
+            while pending and pending[0]['need'] == 0:
+                self._finish_packed(pending.pop(0), results)
+
         for item in videos:
             name, data, sample_count, sample_fps = item[:4]
-            results[name] = self.run_video(data, sample_count, sample_fps,
-                                           max_batch=max_batch)
+            flow_data = item[4] if fusion else None
+            offsets = window_offsets(sample_count, self.clip_length,
+                                     self.stride)
+            streams = [data] + ([flow_data] if fusion else [])
+            for j, s in enumerate(streams):
+                _require_u8(s, f'{"flow " if j else ""}frames ({name})')
+                clips, valid = stack_windows_u8(
+                    transforms.center_crop(s, self.crop_size), offsets,
+                    self.clip_length)
+                queues[2 * j].append(clips)
+                queues[2 * j + 1].append(valid)
+            buffered += len(offsets)
+            pending.append(_new_video(name, offsets, sample_fps))
+            while buffered >= max_batch:
+                split = [split_queue(q, max_batch) for q in queues]
+                flush([h for h, _ in split], max_batch)
+                queues = [r for _, r in split]
+                buffered -= max_batch
+        if buffered:
+            flush(queues, buffered, pad_to=max_batch)
+        assert not pending, 'scheduler left unfinished videos'
         return results
+
+    def run_videos_ingest(self, videos, max_batch: int = 128,
+                          frames_capacity: int = 16384
+                          ) -> Dict[str, List[Dict[str, Any]]]:
+        """Packed frame-staged inference: the raw uint8 frames of
+        consecutive videos fill one device frame buffer per flush;
+        windows are gathered and normalized on the device
+        (`device_windows`, per-window frames-valid) and batched into full
+        `max_batch` forwards across video boundaries.
+
+        Each frame crosses the link once. A flush's buffer holds `cap =
+        k * frames_capacity` frames (k = 1 unless one video alone is
+        longer); each video takes a region of max(its last window's end,
+        its frame count) frames, so windows never cross into the next
+        video except through their tail, which frames-valid zeroes. The
+        window list pads to whole `max_batch` forwards with valid-0 rows
+        (all-zero inputs). The next flush is assembled in pinned host
+        memory and copied (non-blocking, on a side stream) on a
+        background thread while this flush's forwards run; the compute
+        stream waits on the copy's event, and each staged tensor is
+        recorded on the compute stream, so its memory is not reused
+        before the forwards that read it have run. Decoded rows go back
+        to their videos in order; each video is post-processed after its
+        flush. For fusion, twin RGB / flow buffers share one region
+        layout and one offsets array; each stream keeps its own
+        frames-valid (a flow npy may be a frame shorter).
+
+        videos: iterable of (name, data, sample_count, sample_fps), with
+        the flow frames fifth for fusion, consumed lazily. Returns
+        {name: proposals}.
+        """
+        fusion = self.flow_model is not None
+        clip, stride = self.clip_length, self.stride
+        cuda = self.device.type == 'cuda'
+        results: Dict[str, List[Dict[str, Any]]] = {}
+
+        def host_buffer(shape) -> torch.Tensor:
+            return torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
+
+        def plans():
+            staged: List[Dict[str, Any]] = []
+            cursor = 0
+
+            def close():
+                nonlocal staged, cursor
+                plan = {'cap': -(-max(cursor, 1) // frames_capacity)
+                        * frames_capacity, 'vids': staged}
+                offs, fvs = [], [[] for _ in staged[0]['streams']]
+                for j, s in enumerate(staged[0]['streams']):
+                    # filled through a numpy view of the (pinned) buffer
+                    buf = host_buffer((cursor,) + s.shape[1:])
+                    view = buf.numpy()
+                    for v in staged:
+                        frames = v['streams'][j]
+                        view[v['start']:v['start'] + len(frames)] = frames
+                        view[v['start'] + len(frames):
+                             v['start'] + v['region']] = 0
+                        fvs[j].append(np.full(
+                            (len(v['offsets']),),
+                            v['start'] + min(len(frames), v['count']),
+                            np.int64))
+                    plan[f'host{j}'] = buf
+                for v in staged:
+                    offs.append(v['start'] + np.asarray(v['offsets'],
+                                                        np.int64))
+                    del v['streams']        # free the per-video frames
+                n = sum(len(o) for o in offs)
+                pad = np.zeros((_bucket(n, max_batch) - n,), np.int64)
+                plan['n'] = n
+                plan['offs'] = np.concatenate(offs + [pad])
+                for j, fv in enumerate(fvs):
+                    plan[f'fv{j}'] = np.concatenate(fv + [pad])
+                staged, cursor = [], 0
+                return plan
+
+            for item in videos:
+                name, data, sample_count, sample_fps = item[:4]
+                streams = [data] + ([item[4]] if fusion else [])
+                for j, s in enumerate(streams):
+                    _require_u8(s, f'{"flow " if j else ""}frames '
+                                   f'({name})')
+                streams = [transforms.center_crop(s, self.crop_size)
+                           for s in streams]
+                offsets = window_offsets(sample_count, clip, stride)
+                # the region holds every window slice even where the npy
+                # is shorter than sample_count; fusion's streams share it
+                region = max([offsets[-1] + clip]
+                             + [len(s) for s in streams])
+                if staged and cursor + region > frames_capacity:
+                    yield close()
+                staged.append(_new_video(name, offsets, sample_fps,
+                                         streams=streams, start=cursor,
+                                         region=region,
+                                         count=sample_count))
+                cursor += region
+            if staged:
+                yield close()
+
+        side = torch.cuda.Stream(self.device) if cuda else None
+        n_streams = 2 if fusion else 1
+        staged_keys = ['offs'] + [f'{p}{j}' for j in range(n_streams)
+                                  for p in ('buf', 'fv')]
+
+        def stage(plan):
+            """Host plan -> device tensors, on the side stream (runs on
+            the prefetch thread)."""
+            with (torch.cuda.stream(side) if cuda
+                  else contextlib.nullcontext()):
+                for j in range(n_streams):
+                    plan[f'buf{j}'] = stage_frames(
+                        plan.pop(f'host{j}'), pad_to=plan['cap'],
+                        device=self.device)
+                for key in ['offs'] + [f'fv{j}' for j in range(n_streams)]:
+                    plan[key] = self._to_device(plan[key])
+                if cuda:
+                    plan['ready'] = torch.cuda.Event()
+                    plan['ready'].record(side)
+            return plan
+
+        with contextlib.closing(prefetch_items(
+                plans(), transform=stage, depth=2)) as staged_plans:
+            for plan in staged_plans:
+                if cuda:
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(plan['ready'])
+                    for key in staged_keys:
+                        plan[key].record_stream(current)
+                vids, vi = plan['vids'], 0
+                for i in range(0, plan['offs'].shape[0], max_batch):
+                    offs = plan['offs'][i:i + max_batch]
+                    clips = [device_windows(plan[f'buf{j}'], offs,
+                                            plan[f'fv{j}'][i:i + max_batch],
+                                            clip)
+                             for j in range(n_streams)]
+                    dec = self.forward_decode(*clips)
+                    del clips
+                    vi = _route_rows(vids, dec,
+                                     max(0, min(max_batch, plan['n'] - i)),
+                                     vi)
+                for vid in vids:
+                    self._finish_packed(vid, results)
+                del plan
+        return results
+
+    # ---------------------------------------------------- post-processing
 
     def post_process_on_device(self, dec: DecodedWindows,
                                offsets: Sequence[int], sample_fps: float
@@ -212,10 +626,31 @@ class InferencePipeline:
                 })
         return proposals
 
+    def _soft_nms(self, block: np.ndarray) -> np.ndarray:
+        """Greedy gaussian-decay suppression of one class's candidates:
+        host numpy, or with device_nms the block padded to a power of two
+        (at least 64 rows) through `soft_nms_device`; the same rows are
+        kept either way."""
+        if not self.device_nms:
+            kept, _ = soft_nms_numpy(block, sigma=self.nms_sigma,
+                                     top_k=self.top_k)
+            return kept
+        n, d = block.shape
+        n_pad = max(64, 1 << (n - 1).bit_length())
+        padded = torch.zeros((n_pad, d), dtype=torch.float32,
+                             device=self.device)
+        padded[:n] = torch.from_numpy(np.ascontiguousarray(
+            block, np.float32)).to(self.device)
+        valid = torch.arange(n_pad, device=self.device) < n
+        out, _ = soft_nms_device(padded, sigma=self.nms_sigma,
+                                 top_k=self.top_k, valid=valid)
+        out = out.cpu().numpy()
+        return out[out[:, -1] > 0][:, :-1]
+
     def post_process(self, seconds: np.ndarray, conf: np.ndarray,
                      unct: Optional[np.ndarray], act: Optional[np.ndarray]
                      ) -> List[Dict[str, Any]]:
-        """Host path: per-class filter + numpy soft-NMS + top-k
+        """Host path: per-class filter + soft-NMS + top-k
         (test.py:143-200). seconds (W, P, 2), conf (W, P, K)."""
         w, p, k = conf.shape
         seconds = seconds.reshape(-1, 2)
@@ -235,8 +670,7 @@ class InferencePipeline:
                 cols.append(flat_unct[mask][:, None])
             if self.os_head:
                 cols.append(flat_act[mask][:, None])
-            kept, _ = soft_nms_numpy(np.concatenate(cols, axis=1),
-                                     sigma=self.nms_sigma, top_k=self.top_k)
+            kept = self._soft_nms(np.concatenate(cols, axis=1))
             cl_idx = cl + 1 if self.os_head else cl
             for row in kept:
                 if row[2] <= 0:
@@ -249,6 +683,42 @@ class InferencePipeline:
                     'actionness': (float(row[-1]) if self.os_head else 0.0),
                 })
         return proposals
+
+
+def packed_frames(te: dict) -> int:
+    """frames_capacity of the packed modes, as the JAX CLI picks it
+    (`opental_tpu/tools/test.py:29-36`): `testing.packed_frames`, else
+    16384 frames per device-ingest flush (453 MB of 96 x 96 RGB) and
+    32768 for the host-staged windows."""
+    return te.get('packed_frames',
+                  16384 if te.get('device_ingest', True) else 32768)
+
+
+def infer_videos(pipe: InferencePipeline, te: dict, video_infos: dict,
+                 names: List[str], npy_path: str, flow_path: str
+                 ) -> Dict[str, List[dict]]:
+    """Proposals of each named video: packed across videos
+    (`testing.packed`, default true; `testing.packed_batch` windows per
+    forward, `packed_frames(te)` frames per flush) or one video at a
+    time. The next video loads from disk on a thread meanwhile."""
+    fusion = pipe.flow_model is not None
+
+    def load(name):
+        info = video_infos[name]
+        item = (name, np.load(os.path.join(npy_path, name + '.npy')),
+                info['sample_count'], info['sample_fps'])
+        if fusion:
+            item += (np.load(os.path.join(flow_path, name + '.npy')),)
+        return item
+
+    with contextlib.closing(prefetch_items(names, load)) as videos:
+        if te.get('packed', True):
+            return pipe.run_videos(videos,
+                                   max_batch=te.get('packed_batch', 128),
+                                   frames_capacity=packed_frames(te))
+        return {name: pipe.run_video(data, sample_count, fps,
+                                     flow_data=flow[0] if flow else None)
+                for name, data, sample_count, fps, *flow in videos}
 
 
 def proposals_to_json(result_dict: Dict[str, List[Dict[str, Any]]],

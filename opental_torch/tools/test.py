@@ -3,8 +3,10 @@
 
 Counterpart of `opental_tpu/tools/test.py` (reference
 AFSD/thumos14/test.py:203-294): slides windows over every test video,
-runs the model and writes the detection JSON. Runs on the card unless
-`--device cpu` (or device='cpu') is asked for.
+runs the (optionally RGB + flow fused) model and writes the detection
+JSON, in the JAX CLI's modes (`testing.packed`, `testing.device_ingest`,
+`testing.device_nms`; `testing.shared_backbone` raises). Runs on the
+card unless `--device cpu` (or device='cpu') is asked for.
 """
 
 from __future__ import annotations
@@ -12,14 +14,14 @@ from __future__ import annotations
 import os
 from typing import Optional, Tuple, Union
 
-import numpy as np
 import torch
 
 from opental_torch import factory, resolve_device
 from opental_torch.config import Config, build_arg_parser, \
     config_from_namespace
 from opental_torch.data.thumos import get_class_index_map, get_video_info
-from opental_torch.infer.pipeline import InferencePipeline, proposals_to_json
+from opental_torch.infer.pipeline import (InferencePipeline, infer_videos,
+                                          packed_frames, proposals_to_json)
 
 
 def resolve_checkpoint(path: str) -> str:
@@ -54,11 +56,14 @@ def load_variables(model: torch.nn.Module, checkpoint_path: str
 def build_pipeline(cfg: Config,
                    device: Optional[Union[str, torch.device]] = None
                    ) -> Tuple[InferencePipeline, dict, dict]:
+    """The inference pipeline a config describes (with the 2-channel flow
+    BDNet and `testing.flow_checkpoint_path` under `testing.fusion`),
+    the test video infos and the class names."""
     dev = resolve_device(device)
     te = cfg.testing
-    if te.get('fusion', False):
-        raise NotImplementedError('two-stream fusion in the pipeline is '
-                                  'not ported yet')
+    if te.get('shared_backbone', False):
+        raise NotImplementedError('testing.shared_backbone is not ported '
+                                  'yet')
     clip_length = cfg.get_path('dataset.testing.clip_length', 256)
     crop_size = cfg.get_path('dataset.testing.crop_size', 96)
     flags = factory.model_flags(cfg)
@@ -70,15 +75,24 @@ def build_pipeline(cfg: Config,
     model = factory.build_model(cfg, frame_num=clip_length,
                                 crop_size=crop_size, dtype=dtype)
     load_variables(model, te['checkpoint_path'])
+    flow_model = None
+    if te.get('fusion', False):
+        flow_model = factory.build_model(cfg, frame_num=clip_length,
+                                         crop_size=crop_size, dtype=dtype,
+                                         in_channels=2)
+        load_variables(flow_model, te['flow_checkpoint_path'])
     pipe = InferencePipeline(
         model, clip_length=clip_length,
         stride=cfg.get_path('dataset.testing.clip_stride', 128),
         crop_size=crop_size, conf_thresh=te.get('conf_thresh', 0.01),
         top_k=te.get('top_k', 5000), nms_sigma=te.get('nms_sigma', 0.5),
         use_edl=flags['use_edl'], os_head=flags['os_head'],
-        evidence=flags['evidence'],
+        evidence=flags['evidence'], flow_model=flow_model,
+        # testing.device_nms (default true): the fused device
+        # post-processing, as the JAX CLI reads it (tools/test.py:115)
         device_post=te.get('device_nms', True),
-        n_candidates=te.get('n_candidates', 2048), device=dev)
+        n_candidates=te.get('n_candidates', 2048),
+        device_ingest=te.get('device_ingest', True), device=dev)
     video_infos = get_video_info(
         cfg.get_path('dataset.testing.video_info_path'))
     _, idx_to_class = get_class_index_map(
@@ -88,20 +102,21 @@ def build_pipeline(cfg: Config,
 
 def run_test(cfg: Config, max_videos: Optional[int] = None,
              device: Optional[Union[str, torch.device]] = None) -> str:
-    """Detection JSON of every test video; returns its path."""
+    """Detection JSON of every test video; returns its path. With
+    `testing.fusion` the RGB frames come from `testing.rgb_data_path` and
+    the flow frames from `testing.flow_data_path`
+    (`opental_tpu/tools/test.py:142-147`)."""
     te = cfg.testing
     pipe, video_infos, idx_to_class = build_pipeline(cfg, device)
-    npy_path = cfg.get_path('dataset.testing.video_data_path')
+    fusion = te.get('fusion', False)
+    npy_path = (te.get('rgb_data_path', './datasets/thumos14/test_npy/')
+                if fusion
+                else cfg.get_path('dataset.testing.video_data_path'))
+    flow_path = te.get('flow_data_path',
+                       './datasets/thumos14/test_flow_npy/')
     names = list(video_infos.keys())[:max_videos]
-
-    def stream():
-        for name in names:
-            info = video_infos[name]
-            yield (name, np.load(os.path.join(npy_path, name + '.npy')),
-                   info['sample_count'], info['sample_fps'])
-
-    result_dict = pipe.run_videos(stream(),
-                                  max_batch=te.get('packed_batch', 128))
+    result_dict = infer_videos(pipe, te, video_infos, names, npy_path,
+                               flow_path)
     for i, name in enumerate(names):
         print(f'[{i + 1}/{len(names)}] {name}: '
               f'{len(result_dict[name])} proposals')

@@ -153,3 +153,20 @@ def test_stem_modules_are_ported():
             'opental_torch.ops.stem_pack_cuda'} <= set(port_modules())
     assert os.path.isfile(os.path.join(ROOT, 'opental_torch', 'csrc',
                                        'stem_pack.cu'))
+
+
+def test_dataset_inference_modules_are_ported():
+    """The dataset-scale inference slice's modules (threshold calibration,
+    its CLI) are part of the port, and so of the blocked-import check
+    above, and their CLIs refuse to run without a card unless the CPU is
+    asked for."""
+    assert {'opental_torch.openset.threshold',
+            'opental_torch.tools.threshold',
+            'opental_torch.tools.test',
+            'opental_torch.infer.pipeline'} <= set(port_modules())
+    if torch.cuda.is_available():
+        return
+    from opental_torch.tools import threshold
+    cfg_path = os.path.join(ROOT, 'configs', 'thumos14_opental_final.yaml')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        threshold.main([cfg_path, '--output_json', 'no_such_file.json'])

@@ -90,3 +90,35 @@ def test_kernel_refuses_what_it_cannot_take():
         stem_pack_cuda.stem_pack96_v2(torch.zeros((1, 16, 8, 8, 3),
                                                   device='cuda'), fp=2)
     assert (stem_pack_cuda.V1_LAUNCHES, stem_pack_cuda.V2_LAUNCHES) == before
+
+
+# the flow stream of two-stream fusion: C = 2, so z has 64 channels and
+# the destination runs sit at other 16-byte offsets than at C = 3
+FLOW_CASES = {
+    'flow clip as the model hands it over (B, 262, 102, 102, 2)':
+        (2, 262, 102, 102, 2),
+    'odd plane': (3, 22, 10, 14, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(FLOW_CASES))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flow_stream_pack_matches_plain_on_card(dtype, case):
+    """B4 (and v1, fp 2) at C = 2 on the flow model's permuted view and a
+    contiguous copy, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    b, t, h, w, c = FLOW_CASES[case]
+    g = torch.Generator(device='cuda').manual_seed(2)
+    view = torch.randn((b, c, t, h, w), generator=g, device='cuda').to(
+        dtype).permute(0, 2, 3, 4, 1)
+    want = tsp.stem_pack96_v2_plain(view)
+    assert want.shape[2] == 64
+    for xp in (view, view.contiguous()):
+        assert torch.equal(stem_pack_cuda.stem_pack96_v2(xp), want)
+        assert torch.equal(stem_pack_cuda.stem_pack96(xp),
+                           tsp.stem_pack96_plain(xp))
+        if (t // 2 - 3) % 2 == 0:
+            assert torch.equal(stem_pack_cuda.stem_pack96_v2(xp, fp=2),
+                               tsp.stem_pack96_v2_plain(xp, fp=2))

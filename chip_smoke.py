@@ -71,6 +71,26 @@ Phases (any failure ends the run with a non-zero exit):
      counts, windows/s, peak memory
  20. threshold calibration: the tools.threshold CLI with --fusion over
      the same videos as the training set
+ 21. ActivityNet (configs/anet_opental.yaml: 151 classes, 768 x 96 x
+     96): B1 and B2 vs their plain versions exactly on the pool inputs of
+     a W=4 bf16 forward and a bs=2 f32 train step, on adversarial windows
+     and on bounds of +-1e10, +-inf and NaN; their times against the
+     group bound, the plain version and scatter_add_
+ 22. the ANet BDNet in f32, TF32 off: card vs CPU at W=1, kernel path vs
+     plain path at W=4 bit for bit, 2 B1 launches per forward
+ 23. one ANet bs=2 f32 train step, TF32 off: kernel path vs plain path
+     (losses, gradients), 4 B1 + 4 B2 launches, the dual-LR Adam (the
+     backbone at 0.1 x the heads' rate); the step's time, peak memory
+     and busy share
+ 24. ANet inference end to end: tools.test_anet.run_test_anet (bf16,
+     video_batch 4) over 10 synthetic videos (padded and cut; 3
+     forwards, a padded tail), first and warm runs, forward + decode and
+     post-processing per batch, busy share, device_nms true vs false in
+     f32, fused RGB + flow, the CLI's --binary with a classifier file,
+     calibrate_anet through the tools.threshold CLI; launch counts read
+     from each run only
+ 25. ANet training end to end: tools.train for 2 epochs, a checkpoint, a
+     resume, then run_test_anet on the result
 Phases 8 and 9 run with model.stem_pallas off and on. Then a `kernels`
 JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Weights and data are random, made from
@@ -79,6 +99,7 @@ seeds; no network, one card.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -107,6 +128,7 @@ from opental_torch.models import layers  # noqa: E402
 from opental_torch.models.bdnet import BDNet  # noqa: E402
 from opental_torch.ops import (_build, boundary_pool,  # noqa: E402
                                boundary_pool_cuda, stem_pack, stem_pack_cuda)
+from opental_torch.tools import test_anet  # noqa: E402
 from opental_torch.tools import threshold as threshold_cli  # noqa: E402
 from opental_torch.tools import train as train_cli  # noqa: E402
 from opental_torch.tools.test import run_test  # noqa: E402
@@ -115,8 +137,10 @@ from opental_torch.train.loop import SAVE_AFTER_EPOCH  # noqa: E402
 from opental_torch.train.loop import train as train_loop  # noqa: E402
 from opental_torch.train.step import (TrainState, compute_losses,  # noqa: E402
                                       device_ingest, global_norm,
-                                      make_optimizer, train_step)
-from opental_torch.utils.synthetic import make_synthetic_dataset  # noqa: E402
+                                      make_anet_optimizer, make_optimizer,
+                                      train_step)
+from opental_torch.utils.synthetic import (  # noqa: E402
+    make_synthetic_anet_dataset, make_synthetic_dataset)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FRAMES, CROP, CLASSES = 256, 96, 16
@@ -247,11 +271,11 @@ def per_level_route(x, seg, levels, g=None):
             for x0, t, k0, k in pieces]
 
 
-def random_clips(n: int, seed: int) -> torch.Tensor:
-    """(n, 3, FRAMES, CROP, CROP) float32 clips in [-1, 1], made on the
+def random_clips(n: int, seed: int, frames: int = FRAMES) -> torch.Tensor:
+    """(n, 3, frames, CROP, CROP) float32 clips in [-1, 1], made on the
     card from a seed."""
     g = torch.Generator(device='cuda').manual_seed(seed)
-    u8 = torch.randint(0, 256, (n, 3, FRAMES, CROP, CROP), generator=g,
+    u8 = torch.randint(0, 256, (n, 3, frames, CROP, CROP), generator=g,
                        device='cuda', dtype=torch.uint8)
     return (u8.float() / 255.0) * 2.0 - 1.0
 
@@ -310,6 +334,24 @@ def in_turns(fns: dict, reps: int, measure) -> dict:
     for name in list(fns) + list(fns)[::-1]:
         out[name] += measure(fns[name], reps) / 2
     return out
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off and cuDNN deterministic, restored after."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+        torch.cuda.empty_cache()
 
 
 def phase_kernel_vs_plain(calls):
@@ -380,16 +422,9 @@ def phase_kernel_vs_plain(calls):
 
 def phase_full_width(state_dict):
     log('== phase 5: full-width BDNet f32, TF32 off')
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    # the later phases measure the main path with PyTorch's defaults
+    with tf32_off():
         compare_full_width(state_dict)
-    finally:
-        # the later phases measure the main path with PyTorch's defaults
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
 
 
 def compare_full_width(state_dict):
@@ -413,7 +448,6 @@ def compare_full_width(state_dict):
 
     # kernel path vs plain path at W=32: the pool is exact either way, so
     # with deterministic cuDNN the whole forward must be bit-equal
-    torch.backends.cudnn.deterministic = True
     before = boundary_pool_cuda.LAUNCHES
     with torch.inference_mode():
         out_k = model(clips)
@@ -421,7 +455,6 @@ def compare_full_width(state_dict):
     with torch.inference_mode(), boundary_pool.force_plain():
         out_p = model(clips)
     torch.cuda.synchronize()
-    torch.backends.cudnn.deterministic = False
     assert launched == POOLS_PER_FORWARD, \
         f'{launched} kernel launches in one forward'
     for key in OUT_KEYS:
@@ -879,13 +912,7 @@ def phase_bwd_kernel_vs_plain(cfg):
 def phase_train_paths(cfg):
     log('== phase 4: one full-width bs=1 train step, TF32 off: kernel '
         'path vs plain path, card vs CPU')
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.deterministic)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    try:
+    with tf32_off():
         model = train_model(cfg, FRAMES, CROP, 'cuda')
         batch = train_batch(1, FRAMES, CROP, 3, 'cuda')
         f0, b0 = boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES
@@ -937,11 +964,6 @@ def phase_train_paths(cfg):
             f'{terms_k["cost"].item():.6f} vs {terms_c["cost"].item():.6f}, '
             f'grad norm {gn_d:.6f} vs {gn_c:.6f}; CPU step {cpu_s:.1f} s')
         del batch, grads_k, cpu_model, grads_c
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.deterministic) = flags
-        torch.cuda.empty_cache()
 
 
 def phase_train_end_to_end(root):
@@ -1258,11 +1280,7 @@ def phase_stem_layouts(clips, weight):
 
 def phase_full_width_stem(state_dict):
     log('== phase 12: full-width BDNet f32, TF32 off, model.stem_pallas on')
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with tf32_off():
         model = build_model(state_dict, torch.float32, 'cuda',
                             stem_pallas=True)
         clips = random_clips(32, seed=1)
@@ -1302,10 +1320,6 @@ def phase_full_width_stem(state_dict):
             f'key, worst |diff| {worst:.3g}; pack launches per forward '
             f'(v1, v2) {launches}')
         del model, cpu_model, off, out_on, out_off, clips
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = flags
-        torch.cuda.empty_cache()
 
 
 def phase_end_to_end_stem(root, lengths, warm_off):
@@ -1358,14 +1372,8 @@ def stem_grads(model, cfg, batch):
 def phase_train_paths_stem(cfg):
     log('== phase 14: one full-width bs=1 train step, f32, TF32 off: '
         'model.stem_pallas on vs off')
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.deterministic)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
     key = 'backbone._model.Conv3d_1a_7x7.conv3d.weight'
-    try:
+    with tf32_off():
         batch = train_batch(1, FRAMES, CROP, 3, 'cuda')
         on_cfg = load_config(CONFIG, overrides=STEM_CFG)
         reset_counts()
@@ -1408,11 +1416,6 @@ def phase_train_paths_stem(cfg):
             f'upstream gradient within rtol 1e-3 (+1e-3 of its max, worst '
             f'|diff| / max {(wg[0] - wg[1]).abs().max().item() / scale:.3g})'
             f'; pack launches per step (v1, v2) {launches}')
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.deterministic) = flags
-        torch.cuda.empty_cache()
 
 
 def phase_train_end_to_end_stem(root, cfg_path):
@@ -1630,11 +1633,12 @@ def pair_proposals(want, got):
     return pairs
 
 
-def assert_same_json(want_path, got_path, label: str) -> float:
+def assert_same_json(want_path, got_path, label: str, rtol: float = 1e-4,
+                     atol: float = 0.0, seg_atol: float = 1e-4) -> float:
     """tests/test_packed_inference.py::_assert_same on every video of two
     detection JSONs: equal counts, each pair of the same class with score
-    and segment at rtol 1e-4 (segments atol 1e-4). Returns the largest
-    relative score difference."""
+    and segment at rtol 1e-4 (segments atol 1e-4), or the tolerances
+    given. Returns the largest relative score difference."""
     with open(want_path) as f:
         want = json.load(f)['results']
     with open(got_path) as f:
@@ -1647,10 +1651,10 @@ def assert_same_json(want_path, got_path, label: str) -> float:
                                                    len(got[name]))
         for a, b in pair_proposals(want[name], got[name]):
             assert a['label'] == b['label'], (label, name, a, b)
-            np.testing.assert_allclose(a['score'], b['score'], rtol=1e-4,
-                                       err_msg=f'{label} {name}')
+            np.testing.assert_allclose(a['score'], b['score'], rtol=rtol,
+                                       atol=atol, err_msg=f'{label} {name}')
             np.testing.assert_allclose(a['segment'], b['segment'],
-                                       rtol=1e-4, atol=1e-4,
+                                       rtol=1e-4, atol=seg_atol,
                                        err_msg=f'{label} {name}')
             worst = max(worst, abs(a['score'] - b['score'])
                         / max(abs(b['score']), 1e-30))
@@ -1712,12 +1716,8 @@ def phase_packed_f32(root, dirs, videos):
     forwards, _, flushes, _ = ingest_plan([v for _, v in subset], 2048,
                                           32)
     assert flushes == 3, flushes
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     paths = {}
-    try:
+    with tf32_off():
         for mode, extra in (('packed', {}),
                             ('per_video', {'testing.packed': False}),
                             ('host_packed', {'testing.device_ingest': False}),
@@ -1735,9 +1735,6 @@ def phase_packed_f32(root, dirs, videos):
             if mode == 'packed':
                 assert cnt[0] == POOLS_PER_FORWARD * forwards, cnt
             log(f'{mode}: {wall:.3f} s, B1 launches {cnt[0]}')
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = flags
     for mode in ('per_video', 'host_packed', 'host_per_video'):
         worst = assert_same_json(paths['packed'], paths[mode], mode)
         log(f'{mode} == packed device ingest per proposal (rtol 1e-4): '
@@ -1887,6 +1884,628 @@ def phase_threshold(root, dirs, videos):
     return thr, cnt[0]
 
 
+# ------------------------------------------------------------- ActivityNet
+
+ANET_CONFIG = 'configs/anet_opental.yaml'
+ANET_FRAMES = 768
+ANET_BATCH = 4                 # run_test_anet's video_batch (the default)
+ANET_TRAIN_BS = 2              # the shipped config's batch_size
+ANET_ROI = ((ANET_FRAMES, 189),)
+ANET_LR_LEVELS = tuple((t, t) for t in (96, 48, 24, 12, 6, 3)) * 2
+# 10 test videos: shorter than a clip (padded), one clip, longer (cut)
+ANET_LENGTHS = (300, 520, 700, 768, 900, 1200, 450, 1000, 640, 820)
+ANET_TRAIN_LENGTHS = (500, 800, 768, 650)
+EXTREME_BOUNDS = (1e10, -1e10, math.inf, -math.inf, math.nan)
+
+
+def anet_cfg(**overrides):
+    return load_config(ANET_CONFIG, overrides=overrides)
+
+
+def anet_model(state_dict, dtype, device):
+    m = factory.build_model(anet_cfg(), frame_num=ANET_FRAMES,
+                            crop_size=CROP, dtype=dtype)
+    m.load_state_dict(state_dict, strict=True)
+    return m.to(device).eval()
+
+
+def anet_train_batch(b: int, seed: int, device):
+    """`train_batch` at 768 frames with ANet's (action, start, end)
+    heatmap rows, and the uint8 path's pad masks: the last 200 frames of
+    sample 0 (and of its SSL clip) are padding."""
+    batch = train_batch(b, ANET_FRAMES, CROP, seed, device)
+    rng = np.random.RandomState(seed)
+    batch['scores'] = torch.from_numpy(
+        (rng.rand(b, 3, ANET_FRAMES) > 0.9).astype(np.float32)).to(device)
+    pad = torch.zeros((b, ANET_FRAMES), dtype=torch.uint8, device=device)
+    pad[0, -200:] = 1
+    batch['pad_masks'] = pad
+    batch['ssl_pad_masks'] = pad.clone()
+    return batch
+
+
+def extreme_levels(b: int, levels, seed: int) -> torch.Tensor:
+    """`adversarial_levels` with about a third of the bounds replaced by
+    +-1e10, +-inf and NaN (what stride-scaled offsets that overflowed
+    would give)."""
+    seg = adversarial_levels(b, levels, seed).cpu().numpy()
+    rng = np.random.RandomState(seed)
+    hit = rng.rand(*seg.shape) < 0.3
+    seg[hit] = rng.choice(np.asarray(EXTREME_BOUNDS, np.float32),
+                          int(hit.sum()))
+    return torch.from_numpy(seg).cuda()
+
+
+def phase_anet_kernels(state_dict):
+    log('== phase 21: B1 and B2 at the ActivityNet shapes (W=4 bf16 '
+        'forward, bs=2 f32 train step) vs plain version, exactly, on '
+        'captured, adversarial and out-of-range (+-1e10, +-inf, NaN) '
+        'windows')
+    cfg = anet_cfg()
+    calls = capture_pool_inputs(
+        anet_model(state_dict, torch.bfloat16, 'cuda'),
+        random_clips(ANET_BATCH, 31, ANET_FRAMES).to(torch.bfloat16))
+    assert [c[2] for c in calls] == [ANET_ROI, ANET_LR_LEVELS], \
+        [c[2] for c in calls]
+    torch.cuda.empty_cache()
+    model = train_model(cfg, ANET_FRAMES, CROP, 'cuda')
+    train = capture_train_calls(model, cfg,
+                                anet_train_batch(ANET_TRAIN_BS, 32, 'cuda'))
+    del model
+    torch.cuda.empty_cache()
+    with_g = [c for c in train if c['g'] is not None]
+    assert (len(train), len(with_g)) == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), \
+        (len(train), len(with_g))
+    cases = [(x, seg, levels, None) for x, seg, levels in calls] + [
+        (c['x'], c['seg'], c['levels'], c['g']) for c in with_g]
+    max_err, bwd_err, n = 0.0, 0.0, 0
+    for i, (x, seg, levels, g_cap) in enumerate(cases):
+        b, t_len, c = x.shape
+        gen = torch.Generator(device='cuda').manual_seed(40 + i)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype).contiguous()
+            for kind, segs in (
+                    ('captured', seg),
+                    ('adversarial', adversarial_levels(b, levels, 50 + i)),
+                    ('extreme', extreme_levels(b, levels, 60 + i))):
+                out, am = boundary_pool_cuda.boundary_max_pool_fwd(
+                    xd, segs, True, levels)
+                fast, _ = boundary_pool_cuda.boundary_max_pool_fwd(
+                    xd, segs, levels=levels)
+                want, want_am = boundary_pool.plain_forward_segmented(
+                    xd, segs, levels, True)
+                # g on a 1/64 grid: float sums of it are exact in any order
+                g = (torch.randint(-256, 257, out.shape, generator=gen,
+                                   device='cuda') / 64).to(dtype)
+                dx = boundary_pool_cuda.boundary_max_pool_bwd(am, g, t_len,
+                                                              levels)
+                want_dx = boundary_pool.plain_backward_segmented(
+                    want_am, g, levels)
+                torch.cuda.synchronize()
+                err = (fast.float() - want.float()).abs().max().item()
+                max_err = max(max_err, err)
+                tag = f'{kind} call {i} {tuple(x.shape)} {dtype}'
+                if not (torch.equal(fast, want) and torch.equal(out, want)):
+                    raise AssertionError(f'B1 != plain: {tag} err {err}')
+                if not torch.equal(am.long(), want_am):
+                    raise AssertionError(f'B1 argmax != plain: {tag}')
+                if not torch.equal(dx, want_dx):
+                    raise AssertionError(f'B2 != plain: {tag}')
+                if g_cap is not None and kind == 'captured':
+                    gd = g_cap.to(dtype).contiguous()
+                    dx = boundary_pool_cuda.boundary_max_pool_bwd(
+                        am, gd, t_len, levels)
+                    want_dx = boundary_pool.plain_backward_segmented(
+                        want_am, gd, levels)
+                    bwd_err = max(bwd_err, (dx.float() - want_dx.float()
+                                            ).abs().max().item())
+                    torch.testing.assert_close(
+                        dx, want_dx, rtol=1e-6, atol=1e-6,
+                        msg=lambda m: f'B2 captured g {tag}: {m}')
+                n += 1
+    log(f'B1 (with and without argmax) and B2 == plain exactly on {n} '
+        f'cases: the {len(calls)} pool calls of a W={ANET_BATCH} forward '
+        f'and the {len(with_g)} of a bs={ANET_TRAIN_BS} train step x (f32, '
+        f'bf16) x (captured, adversarial, out-of-range) windows, B2 on g on '
+        f'a 1/64 grid; B2 on the captured g within rtol 1e-6 (max |diff| '
+        f'{bwd_err}); B1 max_abs_err {max_err}')
+
+    def plain_fwd():
+        with boundary_pool.force_plain():
+            for x, seg, levels in calls:
+                boundary_pool.boundary_max_pool_segmented(x, seg, levels)
+
+    fwd = {'ms': device_ms(lambda: [boundary_pool_cuda.boundary_max_pool_fwd(
+        x, seg, levels=levels) for x, seg, levels in calls], reps=20),
+        'plain_ms': device_ms(plain_fwd, reps=2),
+        'bound_ms': sum(pool_bound_ms(*c) for c in calls)}
+    grouped = []
+    for c in with_g:
+        _, am = boundary_pool_cuda.boundary_max_pool_fwd(
+            c['x'], c['seg'], True, c['levels'])
+        grouped.append((c['x'], c['levels'], c['g'], am))
+
+    def plain_bwd():
+        for x, levels, g, am in grouped:
+            boundary_pool.plain_backward_segmented(am.long(), g, levels)
+
+    def library():
+        for x, _, g, am in grouped:
+            torch.zeros((g.shape[0], x.shape[1], g.shape[2]), device='cuda'
+                        ).scatter_add_(1, am.long(), g)
+
+    bwd = {'ms': device_ms(lambda: [boundary_pool_cuda.boundary_max_pool_bwd(
+        am, g, x.shape[1], levels) for x, levels, g, am in grouped],
+        reps=20),
+        'plain_ms': device_ms(plain_bwd, reps=1),
+        'library_ms': device_ms(library, reps=20),
+        'bound_ms': sum(bwd_bound_ms(g, x.shape[1])
+                        for x, _, g, _ in grouped),
+        'fwd_train_ms': device_ms(lambda: [
+            boundary_pool_cuda.boundary_max_pool_fwd(c['x'], c['seg'], True,
+                                                     c['levels'])
+            for c in with_g], reps=20),
+        'fwd_train_bound_ms': sum(pool_bound_ms(c['x'], c['seg'],
+                                                c['levels'], True)
+                                  for c in with_g)}
+    for i, (x, seg, levels) in enumerate(calls):
+        log(f'forward call {i}: x {tuple(x.shape)} {x.dtype}, K '
+            f'{seg.shape[1]}, {len(levels)} levels; group bound '
+            f'{pool_bound_ms(x, seg, levels):.6f} ms')
+    log(f'ANet W={ANET_BATCH} bf16 forward, device ms: B1 grouped, '
+        f'{len(calls)} calls: {fwd["ms"]}; plain {fwd["plain_ms"]}; group '
+        f'bound {fwd["bound_ms"]} ({fwd["bound_ms"] / fwd["ms"]:.3f} of it); '
+        f'{card_line()}')
+    log(f'ANet bs={ANET_TRAIN_BS} f32 train step, device ms: B2 grouped, '
+        f'{len(grouped)} calls: {bwd["ms"]}; plain {bwd["plain_ms"]}; '
+        f'scatter_add_ {bwd["library_ms"]}; bound {bwd["bound_ms"]} '
+        f'({bwd["bound_ms"] / bwd["ms"]:.3f} of it); B1 with argmax '
+        f'{bwd["fwd_train_ms"]}, group bound {bwd["fwd_train_bound_ms"]}; '
+        f'{card_line()}')
+    del calls, train, with_g, grouped, cases
+    torch.cuda.empty_cache()
+    return max(max_err, bwd_err), fwd, bwd
+
+
+def phase_anet_full_width(state_dict):
+    log(f'== phase 22: the ActivityNet BDNet ({ANET_FRAMES} x {CROP} x '
+        f'{CROP}, 151 classes) f32, TF32 off: card vs CPU at W=1, kernel '
+        f'path vs plain path at W={ANET_BATCH}')
+    with tf32_off():
+        model = anet_model(state_dict, torch.float32, 'cuda')
+        clips = random_clips(ANET_BATCH, 33, ANET_FRAMES)
+        with torch.inference_mode():
+            dev1 = model(clips[:1])
+        cpu_model = anet_model(state_dict, torch.float32, 'cpu')
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref1 = cpu_model(clips[:1].cpu())
+        cpu_s = time.perf_counter() - t0
+        del cpu_model
+        for key in OUT_KEYS:
+            got, want = dev1[key].float().cpu(), ref1[key].float()
+            assert got.shape == want.shape, (key, got.shape, want.shape)
+            assert torch.isfinite(got).all(), key
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3,
+                                       msg=lambda m: f'{key}: {m}')
+        n_priors = ANET_ROI[0][1]
+        assert tuple(dev1['priors'].shape) == (n_priors, 2)
+        log(f'card == CPU at W=1 (rtol 1e-3, atol 2e-3) on every out key; '
+            f'priors ({n_priors}, 2); CPU forward {cpu_s:.1f} s')
+        before = boundary_pool_cuda.LAUNCHES
+        with torch.inference_mode():
+            out_k = model(clips)
+        launched = boundary_pool_cuda.LAUNCHES - before
+        with torch.inference_mode(), boundary_pool.force_plain():
+            out_p = model(clips)
+        torch.cuda.synchronize()
+        assert launched == POOLS_PER_FORWARD, launched
+        for key in OUT_KEYS:
+            if not torch.equal(out_k[key], out_p[key]):
+                diff = (out_k[key] - out_p[key]).abs().max().item()
+                raise AssertionError(f'kernel path != plain path on {key}: '
+                                     f'{diff}')
+        log(f'W={ANET_BATCH}: kernel path == plain path bit for bit on every '
+            f'out key; {launched} B1 launches per forward')
+        del model, clips, out_k, out_p
+
+
+def phase_anet_train_step():
+    log(f'== phase 23: one ActivityNet bs={ANET_TRAIN_BS} train step (f32, '
+        f'TF32 off): kernel path vs plain path, dual-LR Adam; then its time')
+    cfg = anet_cfg()
+    batch = anet_train_batch(ANET_TRAIN_BS, 34, 'cuda')
+    with tf32_off():
+        model = train_model(cfg, ANET_FRAMES, CROP, 'cuda')
+        f0, b0 = boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES
+        terms_k, grads_k = loss_and_grads(model, cfg, batch)
+        torch.cuda.synchronize()
+        fwd = boundary_pool_cuda.LAUNCHES - f0
+        bwd = boundary_pool_cuda.BWD_LAUNCHES - b0
+        with boundary_pool.force_plain():
+            terms_p, grads_p = loss_and_grads(model, cfg, batch)
+            _, grads_p2 = loss_and_grads(model, cfg, batch)
+        torch.cuda.synchronize()
+        assert (fwd, bwd) == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), (fwd, bwd)
+        for k in terms_k:
+            assert torch.isfinite(terms_k[k]), k
+            if not torch.equal(terms_k[k], terms_p[k]):
+                raise AssertionError(f'{k}: kernel path {terms_k[k]} != '
+                                     f'plain path {terms_p[k]}')
+        gn, gn_p = (global_norm(g.values()).item() for g in (grads_k,
+                                                               grads_p))
+        assert math.isfinite(gn) and math.isclose(gn, gn_p, rel_tol=1e-5), \
+            (gn, gn_p)
+        # PyTorch's max_pool3d backward adds with atomics, so even two
+        # plain runs differ: each gradient may differ from the plain
+        # path's by twice that run-to-run difference, plus 1e-5 of its max
+        assert set(grads_k) == set(grads_p)
+        worst = 0.0
+        for name, gk in grads_k.items():
+            gp = grads_p[name]
+            noise = (gp - grads_p2[name]).abs().max().item()
+            diff = (gk - gp).abs().max().item()
+            allowed = 2 * noise + 1e-5 * gp.abs().max().item()
+            assert diff <= allowed, (name, diff, noise, allowed)
+            worst = max(worst, diff / allowed if allowed else 0.0)
+        log(f'{fwd} B1 + {bwd} B2 launches per step; losses equal the plain '
+            f'path\'s bit for bit; grad norm {gn:.6f} vs {gn_p:.6f} (rtol '
+            f'1e-5); every gradient within twice the plain path\'s own '
+            f'run-to-run difference + 1e-5 of its max (worst at '
+            f'{worst:.3f} of that); cost {terms_k["cost"].item():.6f}')
+        del grads_k, grads_p, grads_p2
+    loss_cfg = factory.build_loss_config(cfg)
+    opt = make_anet_optimizer(model, cfg.training['learning_rate'],
+                              cfg.training['weight_decay'])
+    heads, backbone = opt.param_groups
+    assert math.isclose(backbone['lr'], 0.1 * heads['lr']), \
+        (backbone['lr'], heads['lr'])
+    n_backbone = sum(p.numel() for p in backbone['params'])
+    assert n_backbone == sum(p.numel() for p in
+                             model.backbone.parameters())
+    state = TrainState(model=model, optimizer=opt,
+                       edl_state=EDLState.create(loss_cfg.edl, 'cuda'))
+    weights = factory.build_loss_weights(cfg)
+
+    def step():
+        train_step(state, loss_cfg, weights, batch, 11)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'dual-LR Adam: heads lr {heads["lr"]}, backbone lr '
+        f'{backbone["lr"]} ({n_backbone} backbone parameters); train step '
+        f'bs={ANET_TRAIN_BS} f32 (TF32 on, PyTorch\'s default): {ms:.1f} ms, '
+        f'{ANET_TRAIN_BS / ms * 1e3:.2f} clips/s, peak {peak:.2f} GiB; '
+        f'{card_line()}')
+    busy = profile_device(step, f'ANet train step bs={ANET_TRAIN_BS}')
+    log(f'device busy {busy:.2f} ms of the {ms:.1f} ms step '
+        f'({busy / ms:.1%})')
+    del state, model, opt, batch
+    torch.cuda.empty_cache()
+    return {'ms': ms, 'peak': peak, 'busy': busy}
+
+
+def write_anet_dataset(root: str, seed: int = 5):
+    """The ANet set: ANET_LENGTHS validation and ANET_TRAIN_LENGTHS
+    training uint8 videos at 112 x 112 (RGB, and 2-channel flow of the
+    same length), fps 30, an ANet video-info JSON, 150 class names, video
+    classifier files (validation; 3 of the 4 training videos) and a YAML
+    of the shipped config pointing at all of it. Returns (config path,
+    {name: duration} of the validation set, of the training subset in
+    the classifier file, classifier file paths)."""
+    g = torch.Generator().manual_seed(seed)
+    dirs = {k: os.path.join(root, f'anet_{k}') for k in ('rgb', 'flow')}
+    for d in dirs.values():
+        os.makedirs(d)
+    pools = {ch: torch.randint(0, 200, (1024, 112, 112, ch), generator=g,
+                               dtype=torch.uint8) for ch in (2, 3)}
+    info, durations = {}, {'validation': {}, 'training': {}}
+    for subset, lengths in (('validation', ANET_LENGTHS),
+                            ('training', ANET_TRAIN_LENGTHS)):
+        for v, t in enumerate(lengths):
+            name = f'v_{subset}_{v:03d}'
+            for key, ch in (('rgb', 3), ('flow', 2)):
+                x = pools[ch][torch.randint(0, 1024, (t,), generator=g)]
+                s = int(torch.randint(0, t // 2, (1,), generator=g))
+                x[s:s + t // 3] += 40       # a brighter action-like span
+                np.save(os.path.join(dirs[key], name + '.npy'), x.numpy())
+            info[name] = {'subset': subset, 'frame_num': t, 'fps': 30.0,
+                          'duration': t / 30.0, 'annotations': [
+                              {'label_id': 1 + v, 'label': f'Class{v:03d}',
+                               'start_frame': s, 'end_frame': s + t // 3}]}
+            durations[subset][name[2:]] = t / 30.0
+    with open(os.path.join(root, 'anet_info.json'), 'w') as f:
+        json.dump(info, f)
+    classes = [f'Class{i:03d}' for i in range(150)]
+    with open(os.path.join(root, 'anet_classes.txt'), 'w') as f:
+        f.write('\n'.join(classes) + '\n')
+    rng = np.random.RandomState(seed)
+    cls_files = {}
+    for subset, keys in (('validation', list(durations['validation'])),
+                         ('training', list(durations['training'])[:3])):
+        cls_files[subset] = os.path.join(root, f'anet_cls_{subset}.json')
+        with open(cls_files[subset], 'w') as f:
+            json.dump({'results': {k: rng.rand(150).tolist() for k in keys},
+                       'class': classes}, f)
+    import yaml
+    with open(ANET_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    info_path = os.path.join(root, 'anet_info.json')
+    for dotted, value in {
+            'dataset.class_info_path': os.path.join(root, 'anet_classes.txt'),
+            'dataset.testing.video_info_path': info_path,
+            'dataset.testing.video_mp4_path': dirs['rgb'],
+            'dataset.testing.clip_length': ANET_FRAMES,
+            'dataset.testing.crop_size': CROP,
+            'dataset.training.video_info_path': info_path,
+            'dataset.training.video_mp4_path': dirs['rgb'],
+            'testing.checkpoint_path': os.path.join(root, 'anet.ckpt'),
+            'testing.flow_checkpoint_path': os.path.join(root,
+                                                         'anet_flow.ckpt'),
+            'testing.flow_data_path': dirs['flow'],
+            'testing.output_path': os.path.join(root, 'out_anet')}.items():
+        cur = raw
+        *parents, leaf = dotted.split('.')
+        for p in parents:
+            cur = cur.setdefault(p, {})
+        cur[leaf] = value
+    cfg_path = os.path.join(root, 'anet.yaml')
+    with open(cfg_path, 'w') as f:
+        yaml.safe_dump(raw, f)
+    train_keys = {k: durations['training'][k]
+                  for k in list(durations['training'])[:3]}
+    return cfg_path, durations['validation'], train_keys, cls_files
+
+
+def check_anet_json(path, durations) -> int:
+    """An ANet detection JSON: every video (no 'v_' prefix), finite
+    proposals inside [0, duration]; returns their number."""
+    with open(path) as f:
+        payload = json.load(f)
+    assert payload['version'] == 'ActivityNet-v1.3'
+    assert set(payload['results']) == set(durations), \
+        sorted(payload['results'])
+    n = 0
+    for vid, props in payload['results'].items():
+        for p in props:
+            vals = [p['score'], p['uncertainty'], p['actionness'],
+                    *p['segment']]
+            assert all(math.isfinite(v) for v in vals), p
+            assert 0.0 <= p['segment'][0] < p['segment'][1] <= \
+                durations[vid] + 1e-9, (vid, p, durations[vid])
+        n += len(props)
+    assert n > 0, 'no proposals'
+    return n
+
+
+def anet_run(cfg_path, **kw):
+    """run_test_anet on the ANet set from zeroed launch counts: (JSON path,
+    wall s, counts, peak GiB)."""
+    overrides = kw.pop('overrides', {})
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    path = test_anet.run_test_anet(load_config(cfg_path,
+                                               overrides=overrides), **kw)
+    torch.cuda.synchronize()
+    return (path, time.perf_counter() - t0, counts(),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_anet_inference(state_dict, root):
+    forwards = -(-len(ANET_LENGTHS) // ANET_BATCH)
+    log(f'== phase 24: ActivityNet inference end to end (run_test_anet, '
+        f'bf16, video_batch {ANET_BATCH}) on {len(ANET_LENGTHS)} synthetic '
+        f'videos ({forwards} forwards, a padded tail); {card_line()}')
+    cfg_path, durations, train_keys, cls_files = write_anet_dataset(root)
+    torch.save(state_dict, os.path.join(root, 'anet.ckpt'))
+    flow = factory.init_weights(factory.build_model(
+        anet_cfg(), frame_num=ANET_FRAMES, crop_size=CROP,
+        dtype=torch.float32, in_channels=2), seed=6)
+    torch.save(flow.state_dict(), os.path.join(root, 'anet_flow.ckpt'))
+    del flow
+    n_videos = len(ANET_LENGTHS)
+    launches = 0
+    path, wall, cnt, peak = anet_run(cfg_path, overrides={
+        'testing.output_json': 'first.json'})
+    n_props = check_anet_json(path, durations)
+    assert cnt == (POOLS_PER_FORWARD * forwards, 0, 0, 0), (cnt, forwards)
+    launches += cnt[0]
+    log(f'first run: {n_props} proposals, {wall:.3f} s, '
+        f'{n_videos / wall:.2f} videos/s, B1 {cnt[0]} launches '
+        f'({POOLS_PER_FORWARD} x {forwards} forwards), peak {peak:.2f} GiB')
+    walls = []
+    for i in range(2):
+        path, wall, cnt, peak_w = anet_run(cfg_path, overrides={
+            'testing.output_json': f'warm{i}.json'})
+        check_anet_json(path, durations)
+        walls.append(wall)
+    log(f'warm runs {[round(w, 3) for w in walls]} s, '
+        f'{[round(n_videos / w, 2) for w in walls]} videos/s, peak '
+        f'{peak_w:.2f} GiB')
+
+    # the split: forward + decode of one batch of 4 (CUDA events), the
+    # device post-processing of each batch (host clock from a sync)
+    model = anet_model(state_dict, torch.bfloat16, 'cuda')
+    clips = random_clips(ANET_BATCH, 35, ANET_FRAMES)
+    cfg = anet_cfg()
+    flags = factory.model_flags(cfg)
+
+    def forward_decode():
+        with torch.inference_mode():
+            return test_anet.decode_windows(
+                model(clips), ANET_FRAMES, use_edl=True, os_head=True,
+                score_func='dirichlet', evidence=flags['evidence'])
+
+    fwd_ms = time_ms(forward_decode, reps=5, warmup=2)
+    del model, clips
+    torch.cuda.empty_cache()
+    post_s = []
+    real_post = test_anet.build_device_post
+
+    def timed_post(*a, **k):
+        fn = real_post(*a, **k)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args).cpu()
+            post_s.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    test_anet.build_device_post = timed_post
+    try:
+        _, wall_p, _, _ = anet_run(cfg_path, overrides={
+            'testing.output_json': 'timed.json'})
+    finally:
+        test_anet.build_device_post = real_post
+    log(f'forward + decode of a batch of {ANET_BATCH} (bf16): {fwd_ms:.2f} '
+        f'ms ({ANET_BATCH / fwd_ms * 1e3:.1f} videos/s); device '
+        f'post-processing (150 classes x {ANET_BATCH} videos, batched '
+        f'soft-NMS) {[round(s * 1e3, 1) for s in post_s]} ms per batch, '
+        f'{sum(post_s):.3f} s of the {wall_p:.3f} s run '
+        f'({sum(post_s) / wall_p:.1%}); {card_line()}')
+    share = busy_share(lambda: test_anet.run_test_anet(load_config(
+        cfg_path, overrides={'testing.output_json': 'busy.json'})),
+        'run_test_anet (warm)')
+
+    # device_nms true vs false per proposal, f32, deterministic cuDNN
+    paths = {}
+    with tf32_off():
+        for dn in (True, False):
+            paths[dn], wall, cnt, _ = anet_run(cfg_path, overrides={
+                'model.compute_dtype': 'float32', 'testing.device_nms': dn,
+                'testing.output_json': f'f32_device_nms_{dn}.json'})
+            check_anet_json(paths[dn], durations)
+            assert cnt[0] == POOLS_PER_FORWARD * forwards, cnt
+            log(f'f32 device_nms {dn}: {wall:.3f} s')
+    # the card's soft-NMS and the host's numpy loop round exp and the IoU
+    # differently; a decayed score carries that through its later decays
+    # and, where two scores sit within a rounding of each other, the pick
+    # order can differ: so proposals are held at the tolerances of the CPU
+    # parity tests' matcher across implementations
+    # (tests/proposal_matching.py close(): score 2e-4 + 2e-3 x score,
+    # segments 0.05 s)
+    worst = assert_same_json(paths[True], paths[False], 'device_nms',
+                             rtol=2e-3, atol=2e-4, seg_atol=0.05)
+    log(f'device_nms true == false per proposal (score within 2e-4 + '
+        f'2e-3 x score, segments 0.05 s): largest relative score '
+        f'difference {worst:.3g}')
+
+    path, wall, cnt, peak_f = anet_run(cfg_path, overrides={
+        'testing.fusion': True, 'testing.output_json': 'fused.json'})
+    n_fused = check_anet_json(path, durations)
+    assert cnt == (2 * POOLS_PER_FORWARD * forwards, 0, 0, 0), cnt
+    launches += cnt[0]
+    log(f'fused RGB + flow: {n_fused} proposals, {wall:.3f} s, '
+        f'{n_videos / wall:.2f} videos/s, B1 {cnt[0]}, peak {peak_f:.2f} GiB')
+
+    reset_counts()
+    t0 = time.perf_counter()
+    test_anet.main([cfg_path, '--binary', '--cls_score_file',
+                    cls_files['validation'], '--output_json',
+                    'binary.json'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cnt = counts()
+    assert cnt == (POOLS_PER_FORWARD * forwards, 0, 0, 0), cnt
+    launches += cnt[0]
+    bin_path = os.path.join(root, 'out_anet', 'binary.json')
+    n_bin = check_anet_json(bin_path, durations)
+    with open(cls_files['validation']) as f:
+        cls = json.load(f)
+    with open(bin_path) as f:
+        results = json.load(f)['results']
+    for vid, props in results.items():
+        label = cls['class'][int(np.argmax(cls['results'][vid]))]
+        assert all(p['label'] == label for p in props), vid
+    log(f'--binary with a classifier file (tools.test_anet CLI): {n_bin} '
+        f'proposals, one class per video, {wall:.3f} s')
+
+    reset_counts()
+    t0 = time.perf_counter()
+    threshold_cli.main([cfg_path, '--cls_score_file', cls_files['training'],
+                        '--output_json', 'thresholding.json'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cnt = counts()
+    with open(os.path.join(root, 'out_anet', 'thresholding.json')) as f:
+        payload = json.load(f)
+    thr = payload['external_data']['threshold']
+    assert set(payload['results']) == set(train_keys), payload['results']
+    assert math.isfinite(thr) and 0.0 <= thr <= 1.0, thr
+    assert cnt == (POOLS_PER_FORWARD, 0, 0, 0), cnt     # 3 videos, 1 batch
+    launches += cnt[0]
+    log(f'calibrate_anet (tools.threshold CLI, the 3 training videos of the '
+        f'classifier file): threshold {thr}, '
+        f'{sum(len(v) for v in payload["results"].values())} proposals, '
+        f'{wall:.3f} s, B1 {cnt[0]}')
+    return {'launches': launches, 'walls': walls, 'fwd_ms': fwd_ms,
+            'post_s': post_s, 'share': share, 'threshold': thr}
+
+
+def phase_anet_train_end_to_end(root):
+    log('== phase 25: ActivityNet training end to end (tools.train, full '
+        'width, 151 classes, synthetic videos): 2 epochs, checkpoint, '
+        'resume, run_test_anet')
+    data = os.path.join(root, 'anet_train_synth')
+    cfg_path = make_synthetic_anet_dataset(
+        data, n_train=4, n_val=1, clip_length=ANET_FRAMES, crop_size=CROP,
+        spatial=112, num_known=150, seed=0)
+    cfg = load_config(cfg_path, overrides={'training.max_epoch': 2,
+                                           'training.uint8_ingest': True})
+    assert cfg.get_path('model.arch') == 'anet'
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train_loop(cfg, max_steps_per_epoch=2)
+    heads, backbone = state.optimizer.param_groups
+    assert math.isclose(backbone['lr'], 0.1 * heads['lr'])
+    ckdir = cfg.training.checkpoint_path
+    checkpoint.save(ckdir, SAVE_AFTER_EPOCH, state)
+    train_cli.main([cfg_path, '--max_steps_per_epoch', '2', '--resume',
+                    '-1', '--max_epoch', str(SAVE_AFTER_EPOCH + 1),
+                    '--uint8_ingest'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES
+    assert pack_launches() == 0
+    assert checkpoint.latest_epoch(ckdir) == SAVE_AFTER_EPOCH + 1
+    payload = torch.load(checkpoint.epoch_path(ckdir, SAVE_AFTER_EPOCH + 1),
+                         map_location='cpu', weights_only=True)
+    steps = payload['step']
+    assert len(payload['optimizer']['param_groups']) == 2
+    assert state.step >= 2 and steps > state.step, (state.step, steps)
+    with open(os.path.join(ckdir, 'metrics.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    assert [r['step'] for r in recs] == list(range(1, steps + 1))
+    for r in recs:
+        assert all(math.isfinite(v) for v in r.values()), r
+    assert (fwd, bwd) == (TRAIN_STEP_FWD * steps, TRAIN_STEP_BWD * steps), \
+        (fwd, bwd)
+    log(f'{steps} steps over epochs 1, 2 and (resumed) 11 in {wall:.1f} s '
+        f'(data and checkpoints included); costs '
+        f'{[round(r["cost"], 4) for r in recs]}; launches B1 {fwd}, B2 {bwd} '
+        f'({TRAIN_STEP_FWD} and {TRAIN_STEP_BWD} per step)')
+    with open(os.path.join(data, 'annotations', 'video_info.json')) as f:
+        info = json.load(f)
+    durations = {k[2:]: v['duration'] for k, v in info.items()
+                 if v['subset'] == 'validation'}
+    path = test_anet.run_test_anet(load_config(cfg_path))
+    n = check_anet_json(path, durations)
+    log(f'run_test_anet on the trained checkpoint: {n} proposals, finite')
+    return fwd, bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false: this run '
@@ -1948,16 +2567,42 @@ def main() -> int:
             + fused[True]['counts'][0] + thr_launches
         v2_launches += fused[True]['counts'][3]
         max_err = max(max_err, b1_w128_err)
+
+        anet_sd = factory.init_weights(factory.build_model(
+            anet_cfg(), frame_num=ANET_FRAMES, crop_size=CROP,
+            dtype=torch.float32), seed=4).state_dict()
+        anet_err, anet_fwd, anet_bwd = phase_anet_kernels(anet_sd)
+        max_err = max(max_err, anet_err)
+        bwd_err = max(bwd_err, anet_err)
+        phase_anet_full_width(anet_sd)
+        anet_step = phase_anet_train_step()
+        anet = phase_anet_inference(anet_sd, root)
+        anet_train_fwd, anet_train_bwd = phase_anet_train_end_to_end(root)
+        launches += anet['launches']
+
         train_fwd, train_bwd, train_cfg = phase_train_end_to_end(root)
+        train_fwd += anet_train_fwd
+        train_bwd += anet_train_bwd
         v1_launches = phase_train_end_to_end_stem(root, train_cfg)
         phase_train_speed(cfg)
         phase_throughput(state_dict, root, lengths)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    log(f'ActivityNet: B1 {anet_fwd["ms"]} ms per W={ANET_BATCH} forward '
+        f'(group bound {anet_fwd["bound_ms"]}, plain {anet_fwd["plain_ms"]}), '
+        f'B2 {anet_bwd["ms"]} ms per bs={ANET_TRAIN_BS} step (bound '
+        f'{anet_bwd["bound_ms"]}, plain {anet_bwd["plain_ms"]}, scatter_add_ '
+        f'{anet_bwd["library_ms"]}); train step {anet_step["ms"]:.1f} ms, '
+        f'peak {anet_step["peak"]:.2f} GiB; run_test_anet warm '
+        f'{anet["walls"]} s, forward + decode {anet["fwd_ms"]:.2f} ms per '
+        f'batch, busy {anet["share"]:.1%}; threshold {anet["threshold"]}; '
+        f'launches B1 {anet["launches"]} (inference), {anet_train_fwd} '
+        f'(training), B2 {anet_train_bwd}')
     log(f'boundary_max_pool_fwd launches: {launches} in the inference runs '
-        f'(per-video set, packed, fused off and on, calibration), '
-        f'{train_fwd} in the training run; stem pack v2 {v2_launches} in '
+        f'(per-video set, packed, fused off and on, calibration; ANet: '
+        f'first, fused, binary, calibration), {train_fwd} in the training '
+        f'runs (THUMOS, ANet); stem pack v2 {v2_launches} in '
         f'the stem_pallas inference runs (per-video set, fused), v1 '
         f'{v1_launches} in the stem_pallas training run; B4 at C = 2 '
         f'(W=128 bf16) {b4_flow[PACKED_BATCH]}, W=32 {b4_flow[32]}; '

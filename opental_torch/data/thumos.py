@@ -154,38 +154,52 @@ def _background_region(annos, clip_length: int, min_action: int,
 
 
 def ssl_augment(clip: np.ndarray, annos: List[List[float]], th: int,
-                rng: random.Random
-                ) -> Tuple[np.ndarray, np.ndarray, bool]:
+                rng: random.Random,
+                companions: Tuple[np.ndarray, ...] = ()):
     """Cut-paste SSL augmentation (thumos_dataset.py:187-229): move a
     background block of length `th` inside a GT segment, making two new
     boundaries. clip (T, H, W, C). Returns (augmented clip, (3, 2)
-    segments [left part, right part, inserted background], success)."""
+    segments [left part, right part, inserted background], success).
+
+    `companions`, arrays with the same leading T axis (the ANet uint8
+    path's pad-frame mask), take the same block moves; when given, a
+    fourth element, the tuple of moved companions, is returned."""
     clip_length = clip.shape[0]
     fail = np.zeros((SSL_SEGMENTS, 2), np.float32)
+    failed = ((clip, fail, False, companions) if companions
+              else (clip, fail, False))
     candidates = [a for a in annos if a[1] - a[0] > 2 * th]
     if not candidates:
-        return clip, fail, False
+        return failed
     gt = rng.choice(candidates)
     gt_len = gt[1] - gt[0]
     t = rng.choice(range(math.floor(th), math.ceil(gt_len - th))) \
         + math.ceil(gt[0])
     bg = _background_region(annos, clip_length, th, rng)
     if bg is None:
-        return clip, fail, False
+        return failed
     start_idx = rng.choice(range(bg[1] - bg[0] - th)) + bg[0]
     end_idx = start_idx + th
 
-    new = clip.copy()
     if gt[1] < start_idx:
         # background block right of the GT: rotate it in
-        new[t:t + th] = clip[start_idx:end_idx]
-        new[t + th:end_idx] = clip[t:start_idx]
+        def move(arr):
+            new = arr.copy()
+            new[t:t + th] = arr[start_idx:end_idx]
+            new[t + th:end_idx] = arr[t:start_idx]
+            return new
         segs = [[gt[0], t], [t + th, th + gt[1]], [t + 1, t + th - 1]]
     else:
-        new[start_idx:t - th] = clip[end_idx:t]
-        new[t - th:t] = clip[start_idx:end_idx]
+        def move(arr):
+            new = arr.copy()
+            new[start_idx:t - th] = arr[end_idx:t]
+            new[t - th:t] = arr[start_idx:end_idx]
+            return new
         segs = [[gt[0] - th, t - th], [t, gt[1]], [t - th + 1, t - 1]]
-    return new, np.asarray(segs, np.float32), True
+    segs = np.asarray(segs, np.float32)
+    if companions:
+        return move(clip), segs, True, tuple(move(c) for c in companions)
+    return move(clip), segs, True
 
 
 class ThumosTrainDataset:

@@ -12,6 +12,7 @@ import torch
 from opental_torch.config import Config
 from opental_torch.losses.edl import EDLConfig
 from opental_torch.losses.multisegment import LossConfig
+from opental_torch.models.anet_pyramid import reinit_anet_heads
 from opental_torch.models.bdnet import BDNet
 from opental_torch.models.layers import FrozenBatchNorm, GroupNorm32
 from opental_torch.train.step import LossWeights
@@ -36,7 +37,8 @@ def build_model(cfg: Config, frame_num: Optional[int] = None,
                 crop_size: Optional[int] = None,
                 dtype: Optional[torch.dtype] = None,
                 in_channels: Optional[int] = None) -> BDNet:
-    """The THUMOS BDNet a config describes. Train and eval are the
+    """The BDNet a config describes (`model.arch`: thumos, default, or
+    anet). Train and eval are the
     module's modes (`.train()` turns on dropout and, with
     `model.freeze_bn: false`, batch-statistics BN). dtype None reads
     `model.compute_dtype` (bfloat16 | float32, default float32).
@@ -53,9 +55,6 @@ def build_model(cfg: Config, frame_num: Optional[int] = None,
     for flag in ('use_rpl', 'transformer'):
         if flags[flag]:
             raise NotImplementedError(f'model.{flag} is not ported yet')
-    if flags['arch'] != 'thumos':
-        raise NotImplementedError(f'arch {flags["arch"]!r} is not ported '
-                                  'yet')
     if dtype is None and cfg.get_path('model.compute_dtype') in (
             'bfloat16', 'bf16'):
         dtype = torch.bfloat16
@@ -74,6 +73,7 @@ def build_model(cfg: Config, frame_num: Optional[int] = None,
         # the packed space-to-depth stem, default off, as the JAX factory
         # reads it (factory.py:60)
         stem_pallas=bool(cfg.get_path('model.stem_pallas', False)),
+        arch=flags['arch'],
         dtype=None if dtype == torch.float32 else dtype)
 
 
@@ -113,6 +113,10 @@ def build_loss_config(cfg: Config) -> LossConfig:
             ib_start=e.get('ib_start', 10),
             ibm_start=e.get('ibm_start', 0),
         )
+        if flags['arch'] == 'anet' and edl.with_ibm:
+            # ANet ships the older exp-form MIB (anet/cls_loss.py:225-231)
+            edl = edl._replace(ibm_exp=True,
+                               ibm_coeff=e.get('ibm_coeff', 10.0))
     act = cfg.get_path('training.act_config', {}) or {}
     return LossConfig(
         num_classes=num_cls,
@@ -123,6 +127,7 @@ def build_loss_config(cfg: Config) -> LossConfig:
         os_head=flags['os_head'],
         act_margin=act.get('margin', 1.0),
         act_weight=act.get('weight', 0.1),
+        variant=flags['arch'],
     )
 
 
@@ -144,7 +149,9 @@ def init_train_weights(model: torch.nn.Module, seed: int = 0
     """Seeded starting weights for training, as the JAX package's init and
     the reference's reset_params give them: glorot-uniform convolutions
     with zero biases; norms, BN statistics and the ScaleExp scales at
-    their defaults."""
+    their defaults. An ANet BDNet then takes the normal(0, 0.01) re-init
+    of its tower and head convolutions (`reinit_anet_heads`, as
+    `opental_tpu/train/loop.py:76-82`)."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -152,6 +159,8 @@ def init_train_weights(model: torch.nn.Module, seed: int = 0
                 _glorot_(mod.weight, g)
                 if mod.bias is not None:
                     mod.bias.zero_()
+    if getattr(model, 'arch', 'thumos') == 'anet':
+        reinit_anet_heads(model.coarse_pyramid_detection, g)
     return model
 
 

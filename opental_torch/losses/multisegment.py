@@ -34,6 +34,7 @@ class LossConfig(NamedTuple):
     act_weight: float = 0.1       # rank-loss weight inside actionness
     focal_alpha: float = 0.25
     size_average: bool = False
+    variant: str = 'thumos'       # 'thumos' | 'anet' matching/normalization
 
 
 def segment_iou_1d(pred: torch.Tensor, target: torch.Tensor

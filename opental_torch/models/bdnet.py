@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from opental_torch.models.anet_pyramid import AnetCoarsePyramid
 from opental_torch.models.i3d import InceptionI3d
 from opental_torch.models.pyramid import (CoarsePyramid,
                                           expand_boundary_segments)
@@ -62,7 +63,11 @@ class I3DBackbone(nn.Module):
 
 
 class BDNet(nn.Module):
-    """Boundary detection network for (open-set) TAL, THUMOS variant.
+    """Boundary detection network for (open-set) TAL.
+
+    `arch` picks the pyramid: 'thumos' (`CoarsePyramid`) or 'anet'
+    (`AnetCoarsePyramid`, 768-frame clips, priors (P, 2); it has no
+    dropout, as the JAX package's).
 
     `crop_size` fixes the spatial kernel of the pyramid's input convs
     (the JAX package derives it from the input at init). `dtype` is the
@@ -78,9 +83,12 @@ class BDNet(nn.Module):
                  evidence: str = 'exp', frame_num: int = 256,
                  crop_size: int = 96, freeze_bn: bool = True,
                  freeze_bn_affine: bool = True, dropout: float = 0.0,
-                 stem_pallas: bool = False,
+                 stem_pallas: bool = False, arch: str = 'thumos',
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if arch not in ('thumos', 'anet'):
+            raise ValueError(f'arch {arch!r}')
+        self.arch = arch
         self.in_channels = in_channels
         self.num_classes = num_classes
         self.os_head = os_head
@@ -94,10 +102,15 @@ class BDNet(nn.Module):
                                     freeze_bn=freeze_bn,
                                     freeze_bn_affine=freeze_bn_affine,
                                     stem_pallas=stem_pallas, dtype=dtype)
-        self.coarse_pyramid_detection = CoarsePyramid(
-            num_classes=self.head_classes, frame_num=frame_num,
-            crop_size=crop_size, os_head=os_head, dropout=dropout,
-            dtype=dtype)
+        if arch == 'anet':
+            self.coarse_pyramid_detection = AnetCoarsePyramid(
+                num_classes=self.head_classes, frame_num=frame_num,
+                crop_size=crop_size, os_head=os_head, dtype=dtype)
+        else:
+            self.coarse_pyramid_detection = CoarsePyramid(
+                num_classes=self.head_classes, frame_num=frame_num,
+                crop_size=crop_size, os_head=os_head, dropout=dropout,
+                dtype=dtype)
 
     @property
     def head_classes(self) -> int:

@@ -136,8 +136,25 @@ def _tower(depth: int = 2, dtype=None) -> nn.Sequential:
                                         dtype=dtype) for _ in range(depth)])
 
 
+def input_conv(in_channels: int, spatial: int,
+               dtype: Optional[torch.dtype] = None) -> nn.Sequential:
+    """A pyramid input conv: a spatial-valid Unit3D spanning the whole
+    spatial extent (H x W -> 1 x 1), GroupNorm(32), ReLU."""
+    return nn.Sequential(
+        Unit3D(in_channels, CONV_CHANNELS, (1, spatial, spatial),
+               padding='spatial_valid', use_bias=True, use_batch_norm=False,
+               activation=False, dtype=dtype),
+        GroupNorm32(CONV_CHANNELS), nn.ReLU())
+
+
 class CoarsePyramid(nn.Module):
-    """6-level temporal FPN with coarse heads and proposal refinement."""
+    """6-level temporal FPN with coarse heads and proposal refinement.
+
+    Subclasses (the ActivityNet pyramid, `models/anet_pyramid.py`) replace
+    `_make_pyramids`, `level_features` and `make_level_priors`, and may
+    set `loc_strides`, the per-level multipliers of the coarse offsets."""
+
+    loc_strides: Optional[Tuple[int, ...]] = None
 
     def __init__(self, num_classes: int, frame_num: int = 256,
                  crop_size: int = 96, os_head: bool = False,
@@ -147,18 +164,7 @@ class CoarsePyramid(nn.Module):
         oc = CONV_CHANNELS
         self.frame_num = frame_num
         self.os_head = os_head
-        s4f, s5c = backbone_spatial(crop_size)
-        # spatial-valid kernels spanning the full spatial extent collapse
-        # H x W to 1 x 1 ((6, 6) / (3, 3) at crop 96)
-        in_convs = [
-            nn.Sequential(Unit3D(cin, oc, (1, s, s), padding='spatial_valid',
-                                 use_bias=True, use_batch_norm=False,
-                                 activation=False, dtype=dtype),
-                          GroupNorm32(oc), nn.ReLU())
-            for cin, s in ((832, s4f), (1024, s5c))]
-        self.pyramids = nn.ModuleList(
-            in_convs + [ConvGNReLU1D(oc, oc, 3, stride=2, dtype=dtype)
-                        for _ in range(2, LAYER_NUM)])
+        self.pyramids = self._make_pyramids(crop_size, dtype)
         # frame-level feature stack: one flat Sequential as the reference
         # (deconv.{0,3,6} convs, deconv.{1,4,7} GroupNorms)
         self.deconv = nn.Sequential(*[
@@ -185,15 +191,28 @@ class CoarsePyramid(nn.Module):
         # on the class heads' inputs only, as the JAX package
         # (pyramid.py:213-231); the identity in eval mode
         self.dropout = nn.Dropout(dropout) if dropout > 0 else None
-        self.register_buffer('priors',
-                             torch.from_numpy(make_priors(frame_num)),
-                             persistent=False)
+        self.register_buffer('priors', torch.from_numpy(
+            self.make_level_priors(frame_num)), persistent=False)
 
-    def _drop(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.dropout is None else self.dropout(x)
+    @staticmethod
+    def make_level_priors(frame_num: int) -> np.ndarray:
+        return make_priors(frame_num)
 
-    def forward(self, feat_dict: Dict[str, torch.Tensor], ssl: bool = False
-                ) -> Dict[str, Any]:
+    @staticmethod
+    def _make_pyramids(crop_size: int, dtype: Optional[torch.dtype]
+                       ) -> nn.ModuleList:
+        # input convs over Mixed_4f and Mixed_5c ((6, 6) / (3, 3) kernels
+        # at crop 96), then stride-2 conv blocks
+        s4f, s5c = backbone_spatial(crop_size)
+        return nn.ModuleList(
+            [input_conv(832, s4f, dtype), input_conv(1024, s5c, dtype)]
+            + [ConvGNReLU1D(CONV_CHANNELS, CONV_CHANNELS, 3, stride=2,
+                            dtype=dtype) for _ in range(2, LAYER_NUM)])
+
+    def level_features(self, feat_dict: Dict[str, torch.Tensor]
+                       ) -> List[torch.Tensor]:
+        """The LAYER_NUM level features (B, 512, t_i); the first also
+        feeds the frame-level feature."""
         x1 = feat_dict['Mixed_4f']            # (B, 832, T/4, h, w)
         x2 = feat_dict['Mixed_5c']            # (B, 1024, T/8, h', w')
         lvl0 = self.pyramids[0](x1).flatten(2)    # (B, 512, T/4)
@@ -204,8 +223,15 @@ class CoarsePyramid(nn.Module):
         for i in range(2, LAYER_NUM):
             x = self.pyramids[i](x)
             feats.append(x)
+        return feats
 
-        frame_level = self.deconv(interpolate_nearest_1d(lvl0,
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.dropout is None else self.dropout(x)
+
+    def forward(self, feat_dict: Dict[str, torch.Tensor], ssl: bool = False
+                ) -> Dict[str, Any]:
+        feats = self.level_features(feat_dict)
+        frame_level = self.deconv(interpolate_nearest_1d(feats[0],
                                                          self.frame_num))
         frame_tc = _channels_last(frame_level).contiguous()  # (B, T, 512)
         half = CONV_CHANNELS // 2
@@ -218,8 +244,10 @@ class CoarsePyramid(nn.Module):
         for i, feat in enumerate(feats):
             loc_feat = self.loc_tower(feat)
             conf_feat = self.conf_tower(feat)
-            loc_out = _channels_last(
-                self.loc_heads[i](self.loc_head(loc_feat)))   # (B, t, 2)
+            loc_out = self.loc_heads[i](self.loc_head(loc_feat))
+            if self.loc_strides is not None:
+                loc_out = loc_out * self.loc_strides[i]
+            loc_out = _channels_last(loc_out)                 # (B, t, 2)
             locs.append(loc_out)
             confs.append(_channels_last(self.conf_head(
                 self._drop(conf_feat))))

@@ -1,8 +1,8 @@
 """OOD score threshold calibration (95% TPR on the training set).
 
-Counterpart of `opental_tpu/openset/threshold.py` (THUMOS; the ANet
-calibration raises until the ANet slice); reference AFSD/thumos14/
-threshold.py:71-170: run inference over the TRAINING videos, compose a
+Counterpart of `opental_tpu/openset/threshold.py` (THUMOS: reference
+AFSD/thumos14/threshold.py:71-170; ActivityNet: AFSD/anet/threshold.py:
+31-63): run inference over the TRAINING videos, compose a
 confidence-style score per proposal (the inverse orientation of the
 evaluator's ood_score), and take the score at the 95%-TPR percentile as
 the deployment rejection threshold, stored in the detection JSON's
@@ -13,14 +13,16 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from opental_torch.config import Config
 from opental_torch.data.thumos import get_class_index_map, get_video_info
 from opental_torch.infer.pipeline import (InferencePipeline, infer_videos,
                                           proposals_to_json)
+from opental_torch.tools.test_anet import run_test_anet
 
 
 def confidence_score(prop: Dict[str, Any], scoring: str) -> float:
@@ -71,11 +73,41 @@ def read_threshold(path: str) -> float:
 
 def calibrate_anet(cfg: Config, max_videos: Optional[int] = None,
                    binary: bool = False,
-                   cls_score_file: Optional[str] = None) -> float:
-    """ANet calibration (`opental_tpu/openset/threshold.py:58-99`) needs
-    the ANet inference CLI (tools/test_anet), not ported yet."""
-    raise NotImplementedError('ANet threshold calibration is not ported '
-                              'yet')
+                   cls_score_file: Optional[str] = None,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> float:
+    """ANet calibration (`opental_tpu/openset/threshold.py:58-100`): run
+    `tools.test_anet.run_test_anet` over the TRAINING subset (restricted
+    to the videos of the classifier file where one is given,
+    anet/threshold.py:35-38), take the score at the 95%-TPR percentile
+    and store it in the detection JSON's external_data. An existing
+    output file is read back, not recomputed."""
+    path = output_file(cfg)
+    if os.path.exists(path):
+        return read_threshold(path)
+    train_cfg = cfg.clone()
+    train_cfg['testing']['output_json'] = os.path.basename(path)
+    tr = cfg.get_path('dataset.training', {})
+    for key in ('video_info_path', 'video_mp4_path', 'video_data_path'):
+        if key in tr:
+            train_cfg['dataset']['testing'][key] = tr[key]
+    video_names = None
+    if cls_score_file:
+        with open(cls_score_file) as f:
+            cls_vids = json.load(f)['results']
+        video_names = {'v_' + n for n in cls_vids} | set(cls_vids)
+    out_path = run_test_anet(train_cfg, max_videos=max_videos,
+                             binary=binary, cls_score_file=cls_score_file,
+                             subset='training', video_names=video_names,
+                             device=device)
+    with open(out_path) as f:
+        payload = json.load(f)
+    threshold = threshold_from_results(
+        payload['results'], cfg.testing.get('ood_scoring', 'confidence'))
+    payload['external_data']['threshold'] = threshold
+    with open(out_path, 'w') as f:
+        json.dump(payload, f)
+    return threshold
 
 
 def calibrate(cfg: Config, pipeline: InferencePipeline,

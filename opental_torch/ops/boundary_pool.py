@@ -41,8 +41,13 @@ from opental_torch.ops.boundary_pool_cuda import Levels
 def clamp_windows(segments: torch.Tensor, t_len: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, K, 4) float segments -> int32 (l, r), each (B, K, 2) with the
-    half on the last axis: trunc toward zero, clamp to [0, T-1], r >= l."""
-    seg = segments.to(torch.int32)
+    half on the last axis: trunc toward zero, clamp to [0, T-1], r >= l.
+    The conversion saturates at the int32 range and takes NaN to 0, as
+    the kernel's __float2int_rz and the JAX op's astype(int32) do (a bare
+    float -> int32 cast is undefined out of range, and on x86 CPUs gives
+    INT32_MIN for +1e10 and +inf)."""
+    seg = torch.nan_to_num(segments, nan=0.0).clamp(
+        -2147483648.0, 2147483520.0).to(torch.int32)
     l = seg[..., 0::2].clamp(0, t_len - 1)
     r = seg[..., 1::2].clamp(0, t_len - 1)
     return l, torch.maximum(r, l)

@@ -53,6 +53,15 @@ def load_variables(model: torch.nn.Module, checkpoint_path: str
     return model
 
 
+def inference_dtype(cfg: Config) -> torch.dtype:
+    """The inference CLIs' compute dtype: bfloat16 unless
+    `model.compute_dtype` says float32 (the JAX CLIs' default,
+    `opental_tpu/tools/test.py:83-85`)."""
+    if cfg.get_path('model.compute_dtype') in ('float32', 'f32'):
+        return torch.float32
+    return torch.bfloat16
+
+
 def build_pipeline(cfg: Config,
                    device: Optional[Union[str, torch.device]] = None
                    ) -> Tuple[InferencePipeline, dict, dict]:
@@ -67,11 +76,7 @@ def build_pipeline(cfg: Config,
     clip_length = cfg.get_path('dataset.testing.clip_length', 256)
     crop_size = cfg.get_path('dataset.testing.crop_size', 96)
     flags = factory.model_flags(cfg)
-    # compute dtype: bf16 unless the config says float32 (the JAX CLI's
-    # default, tools/test.py:83-85)
-    dtype = (torch.float32
-             if cfg.get_path('model.compute_dtype') in ('float32', 'f32')
-             else torch.bfloat16)
+    dtype = inference_dtype(cfg)
     model = factory.build_model(cfg, frame_num=clip_length,
                                 crop_size=crop_size, dtype=dtype)
     load_variables(model, te['checkpoint_path'])

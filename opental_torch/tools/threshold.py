@@ -2,12 +2,14 @@
 <cfg.yaml> [flags] [--device cuda|cpu].
 
 Counterpart of `opental_tpu/tools/threshold.py` (reference
-AFSD/thumos14/threshold.py:157-170): run the inference stack of
-`tools.test` over the TRAINING videos (fused with `--fusion`), compose a
-confidence score per proposal, pick the 95%-TPR percentile as the
-rejection threshold and store it in the detection JSON's external_data.
-The ANet calibration (`model.arch: anet`, `--binary`, `--cls_score_file`)
-raises until the ANet slice. Runs on the card unless `--device cpu`.
+AFSD/thumos14/threshold.py:157-170, AFSD/anet/threshold.py:66-79): run
+the inference stack over the TRAINING videos, compose a confidence score
+per proposal, pick the 95%-TPR percentile as the rejection threshold and
+store it in the detection JSON's external_data. An existing output file
+is read back first; otherwise `model.arch: anet` takes the ANet CLI
+(`tools.test_anet`, with `--binary` / `--cls_score_file`) and any other
+arch the THUMOS one (`tools.test`, fused with `--fusion`), as the JAX
+CLI routes. Runs on the card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -29,13 +31,13 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     cfg = config_from_namespace(args)
     path = output_file(cfg)
-    if cfg.get_path('model.arch') == 'anet' or args.binary \
-            or args.cls_score_file:
-        threshold = calibrate_anet(cfg, binary=args.binary,
-                                   cls_score_file=args.cls_score_file)
-    elif os.path.exists(path):
+    if os.path.exists(path):
         threshold = read_threshold(path)
         print(f'Thresholding result file already exist at {path}!')
+    elif cfg.get_path('model.arch') == 'anet':
+        threshold = calibrate_anet(cfg, binary=args.binary,
+                                   cls_score_file=args.cls_score_file,
+                                   device=args.device)
     else:
         pipe, _, _ = build_pipeline(cfg, device=args.device)
         threshold = calibrate(cfg, pipe)

@@ -18,12 +18,14 @@ import torch
 
 from opental_torch import factory, resolve_device
 from opental_torch.config import Config
+from opental_torch.data.anet import AnetTrainDataset
 from opental_torch.data.prefetch import prefetch
 from opental_torch.data.thumos import (ThumosTrainDataset, get_video_anno,
                                        get_video_info)
 from opental_torch.losses.edl import EDLState
 from opental_torch.train import checkpoint as ckpt
-from opental_torch.train.step import TrainState, make_optimizer, train_step
+from opental_torch.train.step import (TrainState, make_anet_optimizer,
+                                      make_optimizer, train_step)
 
 SAVE_AFTER_EPOCH = 10
 
@@ -70,9 +72,10 @@ def load_backbone(model: torch.nn.Module, path: str) -> None:
 def init_state(cfg: Config, device: torch.device, seed: int,
                frame_num: Optional[int] = None,
                crop_size: Optional[int] = None) -> TrainState:
-    """Model with seeded glorot weights (the reference's reset_params), the
-    I3D backbone overlaid when its file exists, Adam, and a fresh EDL
-    state, all on `device`."""
+    """Model with seeded glorot weights (the reference's reset_params; an
+    ANet model's heads re-initialized on top), the I3D backbone overlaid
+    when its file exists, Adam (ANet: the backbone at 0.1 x the heads'
+    learning rate) and a fresh EDL state, all on `device`."""
     model = factory.init_train_weights(
         factory.build_model(cfg, frame_num=frame_num, crop_size=crop_size),
         seed=seed)
@@ -85,12 +88,37 @@ def init_state(cfg: Config, device: torch.device, seed: int,
     model = model.to(device)
     tr = cfg.training
     loss_cfg = factory.build_loss_config(cfg)
+    make_opt = make_anet_optimizer if model.arch == 'anet' \
+        else make_optimizer
     return TrainState(
         model=model,
-        optimizer=make_optimizer(model, tr['learning_rate'],
-                                 tr['weight_decay']),
+        optimizer=make_opt(model, tr['learning_rate'], tr['weight_decay']),
         edl_state=(EDLState.create(loss_cfg.edl, device)
                    if loss_cfg.edl is not None else None))
+
+
+def build_dataset(cfg: Config, arch: str, clip_length: int, crop_size: int,
+                  seed: int):
+    """The training dataset of the config's arch (`train/loop.py:133-148`
+    of the JAX package)."""
+    uint8_ingest = bool(cfg.training.get('uint8_ingest', False))
+    if arch == 'anet':
+        return AnetTrainDataset(
+            cfg.get_path('dataset.training.video_info_path'),
+            cfg.get_path('dataset.training.video_data_path'),
+            clip_length=clip_length, crop_size=crop_size, seed=seed,
+            binary_class=cfg.get_path('dataset.binary_class', False),
+            uint8_ingest=uint8_ingest)
+    video_infos = get_video_info(
+        cfg.get_path('dataset.training.video_info_path'))
+    video_annos = get_video_anno(
+        video_infos, cfg.get_path('dataset.training.video_anno_path'),
+        cfg.get_path('dataset.class_info_path'))
+    return ThumosTrainDataset(
+        cfg.get_path('dataset.training.video_data_path'), video_infos,
+        video_annos, clip_length=clip_length, crop_size=crop_size,
+        stride=cfg.get_path('dataset.training.clip_stride', 30), seed=seed,
+        uint8_ingest=uint8_ingest)
 
 
 def train(cfg: Config, max_steps_per_epoch: Optional[int] = None,
@@ -116,16 +144,8 @@ def train(cfg: Config, max_steps_per_epoch: Optional[int] = None,
     state = init_state(cfg, dev, seed, clip_length, crop_size)
     loss_cfg = factory.build_loss_config(cfg)
     weights = factory.build_loss_weights(cfg)
-    video_infos = get_video_info(
-        cfg.get_path('dataset.training.video_info_path'))
-    video_annos = get_video_anno(
-        video_infos, cfg.get_path('dataset.training.video_anno_path'),
-        cfg.get_path('dataset.class_info_path'))
-    dataset = ThumosTrainDataset(
-        cfg.get_path('dataset.training.video_data_path'), video_infos,
-        video_annos, clip_length=clip_length, crop_size=crop_size,
-        stride=cfg.get_path('dataset.training.clip_stride', 30), seed=seed,
-        uint8_ingest=bool(tr.get('uint8_ingest', False)))
+    dataset = build_dataset(cfg, state.model.arch, clip_length, crop_size,
+                            seed)
 
     checkpoint_path = tr.get('checkpoint_path', './checkpoints')
     resume = tr.get('resume', 0)

@@ -16,6 +16,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from opental_torch.losses.anet_multisegment import anet_multisegment_loss
 from opental_torch.losses.boundary import boundary_losses, ssl_triplet_loss
 from opental_torch.losses.edl import EDLState
 from opental_torch.losses.multisegment import LossConfig, multisegment_loss
@@ -47,13 +48,21 @@ def device_ingest(batch: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
     """Clips on the device into the model's input: uint8 [0, 255] ->
     float32 [-1, 1] in the host transform's op order
-    (transforms.normalize_clip), and (B, T, H, W, C) -> (B, C, T, H, W)."""
+    (transforms.normalize_clip), and (B, T, H, W, C) -> (B, C, T, H, W).
+    ANet uint8 batches carry (B, T) `pad_masks` / `ssl_pad_masks`: the
+    frames the f32 path pads with 127.5, which normalizes to exactly 0.0,
+    become where(pad, 0, x) (`opental_tpu/train/step.py:48-62`); the mask
+    keys are consumed here."""
     out = dict(batch)
-    for k in ('clips', 'ssl_clips'):
+    for k, mk in (('clips', 'pad_masks'), ('ssl_clips', 'ssl_pad_masks')):
+        mask = out.pop(mk, None)
         if k in out:
             x = out[k]
             if x.dtype == torch.uint8:
                 x = (x.float() / 255.0) * 2.0 - 1.0
+                if mask is not None:
+                    x = torch.where(mask.bool()[:, :, None, None, None],
+                                    0.0, x)
             out[k] = x.permute(0, 4, 1, 2, 3).contiguous()
     return out
 
@@ -68,6 +77,25 @@ def make_optimizer(model: torch.nn.Module, learning_rate: float,
                             weight_decay=weight_decay)
 
 
+ANET_BACKBONE_LR_SCALE = 0.1
+
+
+def make_anet_optimizer(model: torch.nn.Module, learning_rate: float,
+                        weight_decay: float) -> torch.optim.Adam:
+    """The ANet optimizer: `make_optimizer`'s Adam with two parameter
+    groups, the heads at learning_rate and the backbone at
+    learning_rate * ANET_BACKBONE_LR_SCALE (anet/train.py:304-311)."""
+    groups = {True: [], False: []}
+    for name, p in model.named_parameters():
+        groups[name.startswith('backbone.')].append(p)
+    return torch.optim.Adam(
+        [{'params': groups[False], 'lr': learning_rate},
+         {'params': groups[True],
+          'lr': learning_rate * ANET_BACKBONE_LR_SCALE}],
+        lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=weight_decay)
+
+
 def compute_losses(model: torch.nn.Module, loss_cfg: LossConfig,
                    weights: LossWeights, batch: Dict[str, torch.Tensor],
                    edl_state: Optional[EDLState], epoch: int
@@ -75,13 +103,23 @@ def compute_losses(model: torch.nn.Module, loss_cfg: LossConfig,
                               Optional[EDLState]]:
     """Full training objective (train.py:222-241) on an ingested batch:
     clips (B, C, T, H, W), truths (B, N, 2), labels (B, N), gt_mask (B, N),
-    scores (B, 2, T), ssl_clips, ssl_props (B, 3, 2), ssl_flags (B,).
+    scores (B, 2, T) (ANet: (B, 3, T)), ssl_clips, ssl_props (B, 3, 2), ssl_flags (B,).
     Returns (cost, loss terms, new EDL state)."""
     out = model(batch['clips'])
-    losses, new_edl = multisegment_loss(
-        loss_cfg, out, batch['truths'], batch['labels'], batch['gt_mask'],
-        edl_state=edl_state, epoch=epoch)
-    loss_start, loss_end = boundary_losses(out, batch['scores'])
+    if loss_cfg.variant == 'anet':
+        losses, new_edl = anet_multisegment_loss(
+            loss_cfg, out, batch['truths'], batch['labels'],
+            batch['gt_mask'], edl_state=edl_state, epoch=epoch)
+        # ANet heatmaps carry (action, start, end) rows; the proposal-level
+        # targets subsample at the stride-8 feature rate
+        loss_start, loss_end = boundary_losses(out, batch['scores'],
+                                               start_row=1, end_row=2,
+                                               downscale=8)
+    else:
+        losses, new_edl = multisegment_loss(
+            loss_cfg, out, batch['truths'], batch['labels'],
+            batch['gt_mask'], edl_state=edl_state, epoch=epoch)
+        loss_start, loss_end = boundary_losses(out, batch['scores'])
     cost = (weights.lw * losses['loss_l'] + weights.cw * losses['loss_c']
             + weights.lw * losses['loss_prop_l']
             + weights.cw * losses['loss_prop_c']

@@ -1,7 +1,7 @@
-"""Synthetic THUMOS-style dataset.
+"""Synthetic THUMOS-style and ActivityNet-style datasets.
 
-The port's own numpy copy of `opental_tpu/utils/synthetic.py:70`
-`make_synthetic_dataset`: a miniature but format-complete dataset (npy
+The port's own numpy copies of `opental_tpu/utils/synthetic.py:70`
+`make_synthetic_dataset` and `:247` `make_synthetic_anet_dataset`: a miniature but format-complete dataset (npy
 videos, video-info and annotation CSVs, class index, open GT JSON, YAML
 config) so that train -> test runs end to end without real data, at the
 clip length, crop and frame size the caller chooses (full width for the
@@ -187,6 +187,128 @@ def make_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
             'fusion': False,
             # the port's training writes checkpoint-<epoch>.ckpt and
             # this link to the newest (train/checkpoint.py)
+            'checkpoint_path': os.path.join(root, 'models',
+                                            'checkpoint-latest.ckpt'),
+            'output_path': os.path.join(root, 'output'),
+            'output_json': 'detection_results.json',
+        },
+    }
+    cfg_path = os.path.join(root, 'config.yaml')
+    with open(cfg_path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return cfg_path
+
+
+def make_synthetic_anet_dataset(root: str, n_train: int = 2,
+                                n_val: int = 2, clip_length: int = 256,
+                                crop_size: int = 32, spatial: int = 40,
+                                num_known: int = 4, seed: int = 0) -> str:
+    """ANet-format miniature dataset: v_*.npy single-window videos, a
+    video_info JSON (anet_data/gen_video_info.py schema: subset,
+    frame_num, fps, duration, annotations[{label_id, start_frame,
+    end_frame, label}]), an action_known.txt class file, an open GT JSON,
+    and a reference-schema YAML config (configs/anet_opental.yaml).
+    Returns the config path. Validation videos may carry unknown-class
+    segments (kept in the GT, absent from the class file)."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    anno = os.path.join(root, 'annotations')
+    data_dir = os.path.join(root, 'npy')
+    os.makedirs(anno, exist_ok=True)
+    os.makedirs(data_dir, exist_ok=True)
+    known = [f'Act{i:02d}' for i in range(1, num_known + 1)]
+    unknown_name = 'MysteryAct'
+    with open(os.path.join(anno, 'action_known.txt'), 'w') as f:
+        f.write('\n'.join(known) + '\n')
+
+    fps = 5.0
+    video_info: Dict[str, dict] = {}
+    database: Dict[str, dict] = {}
+
+    def gen(subset: str, n: int) -> None:
+        for v in range(n):
+            name = f'v_{subset}_{v:03d}'
+            t = int(rng.randint(clip_length // 2, clip_length + 1))
+            video = rng.randint(0, 255, (t, spatial, spatial, 3),
+                                dtype=np.uint8)
+            anns, db_anns = [], []
+            for _ in range(rng.randint(1, 3)):
+                length = rng.randint(clip_length // 8, clip_length // 3)
+                start = rng.randint(0, max(t - length, 1))
+                end = min(start + length, t)
+                openset_unknown = (subset == 'validation'
+                                   and rng.rand() < 0.3)
+                cid = 0 if openset_unknown else int(
+                    rng.randint(1, num_known + 1))
+                label = unknown_name if openset_unknown else known[cid - 1]
+                video[start:end] = np.clip(
+                    video[start:end].astype(np.int32) + 60, 0,
+                    255).astype(np.uint8)
+                if not openset_unknown or subset == 'validation':
+                    anns.append({'label_id': cid, 'label': label,
+                                 'start_frame': int(start),
+                                 'end_frame': int(end)})
+                db_anns.append({'segment': [start / fps, end / fps],
+                                'label': label})
+            np.save(os.path.join(data_dir, name + '.npy'), video)
+            video_info[name] = {
+                'subset': subset, 'frame_num': t, 'fps': fps,
+                'duration': t / fps,
+                'annotations': anns,
+            }
+            database[name[2:]] = {'subset': subset,
+                                  'annotations': db_anns}
+
+    gen('training', n_train)
+    gen('validation', n_val)
+
+    info_path = os.path.join(anno, 'video_info.json')
+    with open(info_path, 'w') as f:
+        json.dump(video_info, f)
+    with open(os.path.join(anno, 'gt_open.json'), 'w') as f:
+        json.dump({'database': database}, f)
+
+    cfg = {
+        'dataset': {
+            'num_classes': num_known + 1,
+            'class_info_path': os.path.join(anno, 'action_known.txt'),
+            'training': {
+                'video_mp4_path': data_dir,
+                'video_info_path': info_path,
+                'video_data_path': data_dir,
+                'clip_length': clip_length,
+                'clip_stride': clip_length,
+                'crop_size': crop_size,
+            },
+            'testing': {
+                'video_mp4_path': data_dir,
+                'video_info_path': info_path,
+                'video_data_path': data_dir,
+                'clip_length': clip_length,
+                'clip_stride': clip_length,
+                'crop_size': crop_size,
+            },
+        },
+        'model': {
+            'in_channels': 3, 'arch': 'anet', 'freeze_bn': True,
+            'freeze_bn_affine': True, 'use_edl': True, 'evidence': 'exp',
+            'os_head': True, 'backbone_model': '',
+        },
+        'training': {
+            'batch_size': 2, 'learning_rate': 1e-4, 'weight_decay': 1e-4,
+            'max_epoch': 1, 'focal_loss': False, 'edl_loss': True,
+            'edl_config': {
+                'evidence': 'exp', 'loss_type': 'log', 'soft_label': 0,
+                'with_focal': False, 'alpha': 0.25, 'gamma': 2,
+                'iou_aware': True, 'with_ibm': True, 'ibm_start': 10,
+                'momentum': 0.99, 'num_bins': 50,
+            },
+            'checkpoint_path': os.path.join(root, 'models'),
+            'random_seed': 2020,
+        },
+        'testing': {
+            'conf_thresh': 0.01, 'top_k': 100, 'nms_thresh': 0.5,
+            'nms_sigma': 0.85, 'fusion': False,
             'checkpoint_path': os.path.join(root, 'models',
                                             'checkpoint-latest.ckpt'),
             'output_path': os.path.join(root, 'output'),

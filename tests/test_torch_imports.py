@@ -170,3 +170,19 @@ def test_dataset_inference_modules_are_ported():
     cfg_path = os.path.join(ROOT, 'configs', 'thumos14_opental_final.yaml')
     with pytest.raises(RuntimeError, match='CUDA'):
         threshold.main([cfg_path, '--output_json', 'no_such_file.json'])
+
+
+def test_anet_modules_are_ported():
+    """The ActivityNet slice's modules are part of the port (and so of
+    the blocked-import check above), and its CLI refuses to run without a
+    card unless the CPU is asked for."""
+    assert {'opental_torch.models.anet_pyramid',
+            'opental_torch.losses.anet_multisegment',
+            'opental_torch.data.anet',
+            'opental_torch.tools.test_anet'} <= set(port_modules())
+    if torch.cuda.is_available():
+        return
+    from opental_torch.tools import test_anet
+    cfg_path = os.path.join(ROOT, 'configs', 'anet_opental.yaml')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        test_anet.main([cfg_path])

@@ -3,7 +3,8 @@
 * `confidence_score` and `threshold_from_results` equal JAX's on random
   proposal sets, for all six scorings.
 * `calibrate` over the synthetic training videos, fused, gives the same
-  threshold packed and one video at a time; the ANet calibration raises.
+  threshold packed and one video at a time; a THUMOS config given the
+  ANet CLI flags still calibrates as THUMOS.
 
 The port's calibration is held against JAX's `calibrate` in
 `tests/test_torch_packed_inference.py`, which shares the JAX fused
@@ -79,9 +80,21 @@ def test_calibrate_per_video_matches_packed(cli_cfg):
     np.testing.assert_allclose(thr[False], thr[True], rtol=1e-4)
 
 
-def test_anet_calibration_is_refused(cli_cfg):
-    with pytest.raises(NotImplementedError, match='ANet'):
-        threshold.calibrate_anet(load_config(cli_cfg))
-    for flags in (['--binary'], ['--cls_score_file', 'x.json']):
-        with pytest.raises(NotImplementedError, match='ANet'):
-            threshold_cli.main([cli_cfg, '--device', 'cpu', *flags])
+def test_anet_calibration_is_refused(cli_cfg, monkeypatch):
+    """The ANet calibration is refused to a THUMOS config: given
+    `--binary` or `--cls_score_file`, the CLI routes on model.arch alone,
+    as the JAX CLI does (`opental_tpu/tools/threshold.py:33-40`), and
+    calibrates as THUMOS. (ANet configs: tests/test_torch_anet_inference.py.)"""
+    calls = []
+    monkeypatch.setattr(threshold_cli, 'calibrate_anet',
+                        lambda *a, **k: calls.append('anet') or 0.25)
+    monkeypatch.setattr(threshold_cli, 'calibrate',
+                        lambda *a, **k: calls.append('thumos') or 0.5)
+    monkeypatch.setattr(threshold_cli, 'build_pipeline',
+                        lambda cfg, device=None: (None, None, None))
+    assert load_config(cli_cfg).get_path('model.arch', 'thumos') == 'thumos'
+    for i, flags in enumerate((['--binary'], ['--cls_score_file', 'x.json'],
+                               ['--binary', '--cls_score_file', 'x.json'])):
+        threshold_cli.main([cli_cfg, '--device', 'cpu', *flags,
+                            '--output_json', f'routed_{i}.json'])
+    assert calls == ['thumos'] * 3

@@ -5,6 +5,7 @@
 
 Phases (any failure ends the run with a non-zero exit):
   1. card, versions; build the CUDA kernels from csrc/ (nvcc, in parallel)
+     and libmr from native/libmr/libmr.cpp (g++)
   2. B1, the grouped pool forward, vs its plain PyTorch version on the
      card, at the inputs inference gives it (the 2 calls of a full-width
      forward at W=32) and on per-level adversarial segments, in float32
@@ -91,6 +92,27 @@ Phases (any failure ends the run with a non-zero exit):
      from each run only
  25. ANet training end to end: tools.train for 2 epochs, a checkpoint, a
      resume, then run_test_anet on the result
+ 26. shared-backbone inference (testing.shared_backbone: 4-window spans
+     of 648 frames, up to 48 per forward): run_test packed and per video
+     over the packed videos, B1 launches against the span scheduler's
+     forwards, windows/s of the first run and warm runs in turns with the
+     default packed path (bf16), busy share, peak memory; B1 exactly
+     against its plain version on a shared forward's pool inputs and B4
+     at the span shape, each timed against its bound; in f32 the
+     interior windows' sliced features against a per-window backbone,
+     card == CPU on one short video; model.stem_pallas on the spans
+ 27. RPL and GCPL (configs/thumos14_open_{rpl,gcpl}.yaml): a bs=1 f32
+     step, TF32 off, kernel path vs plain path (4 + 4 launches) and card
+     vs CPU; the step time against the OpenTAL step, in turns; tools.train
+     for 2 steps with a checkpoint, then run_test (GCPL negated)
+ 28. OpenMax (configs/thumos14_openmax.yaml) on synthetic videos of its 15
+     classes: stage 1 (MAVs of the get_feat taps, kernel path == plain
+     path), stage 2 (Weibull fit, libmr built with g++), stage 3
+     (recalibrated test), the tools.test_openmax CLI, tools.eval_open;
+     the time of each stage
+ 29. tools.test_cross_data over the phase-6 videos and synthetic
+     ActivityNet videos, and tools.search_param over a 2 x 2 grid, its
+     cache re-read
 Phases 8 and 9 run with model.stem_pallas off and on. Then a `kernels`
 JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Weights and data are random, made from
@@ -101,6 +123,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -113,11 +136,13 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from opental_torch import factory  # noqa: E402
 from opental_torch.config import load_config  # noqa: E402
+from opental_torch.data.thumos import get_class_index_map  # noqa: E402
 from opental_torch.infer import pipeline as pipeline_mod  # noqa: E402
 from opental_torch.infer.pipeline import (InferencePipeline,  # noqa: E402
                                           window_offsets)
@@ -128,12 +153,17 @@ from opental_torch.models import layers  # noqa: E402
 from opental_torch.models.bdnet import BDNet  # noqa: E402
 from opental_torch.ops import (_build, boundary_pool,  # noqa: E402
                                boundary_pool_cuda, stem_pack, stem_pack_cuda)
-from opental_torch.tools import test_anet  # noqa: E402
+from opental_torch.openset import libmr  # noqa: E402
+from opental_torch.openset.openmax import weibull_fitting  # noqa: E402
+from opental_torch.tools import (eval_open, search_param,  # noqa: E402
+                                 test_anet, test_cross_data, test_openmax)
 from opental_torch.tools import threshold as threshold_cli  # noqa: E402
 from opental_torch.tools import train as train_cli  # noqa: E402
-from opental_torch.tools.test import run_test  # noqa: E402
+from opental_torch.tools.test import build_pipeline, run_test  # noqa: E402
 from opental_torch.train import checkpoint  # noqa: E402
 from opental_torch.train.loop import SAVE_AFTER_EPOCH  # noqa: E402
+from opental_torch.train.loop import (  # noqa: E402
+    init_state as train_init_state)
 from opental_torch.train.loop import train as train_loop  # noqa: E402
 from opental_torch.train.step import (TrainState, compute_losses,  # noqa: E402
                                       device_ingest, global_norm,
@@ -2506,6 +2536,647 @@ def phase_anet_train_end_to_end(root):
     return fwd, bwd
 
 
+# ------------------------------------------- the open-set slice (26 - 29)
+
+SPAN_GROUP = InferencePipeline.shared_group    # windows per span
+SPAN = 128 * (SPAN_GROUP - 1) + FRAMES + 8
+SPAN_CHUNK = InferencePipeline.shared_max_groups
+
+
+def shared_plan(videos, capacity: int = PACKED_FRAMES) -> dict:
+    """Forwards of the shared-backbone runs over videos [(frames,
+    sample_count)], by the span scheduler's rule restated: per video one
+    forward per SPAN_CHUNK spans; packed, a video opens a new flush where
+    its region (from the next multiple of 8: its last span's end or its
+    frame count, whichever is larger) would overflow the capacity, and a
+    flush runs one forward per SPAN_CHUNK of its spans."""
+    packed = per_video = windows = spans = flush = cursor = 0
+    for t, count in videos:
+        offsets = pipeline_mod.snapped_offsets(count, FRAMES, 128)
+        bases, _, _ = pipeline_mod.span_plan(offsets, SPAN_GROUP)
+        need = max(int(bases[-1]) + SPAN, t)
+        start = -(-cursor // 8) * 8
+        if flush and start + need > capacity:
+            packed += -(-flush // SPAN_CHUNK)
+            flush, start = 0, 0
+        flush += len(bases)
+        cursor = start + need
+        per_video += -(-len(bases) // SPAN_CHUNK)
+        windows += len(offsets)
+        spans += len(bases)
+    packed += -(-flush // SPAN_CHUNK)
+    return {'packed': packed, 'per_video': per_video, 'windows': windows,
+            'spans': spans}
+
+
+def capture_calls(fn):
+    """(x, segments, levels) of every boundary-pool call of fn()."""
+    calls = []
+    real = pyramid.boundary_max_pool_segmented
+
+    def recording(x, seg, levels):
+        calls.append((x.clone(), seg.clone(), levels))
+        return real(x, seg, levels)
+
+    pyramid.boundary_max_pool_segmented = recording
+    try:
+        fn()
+    finally:
+        pyramid.boundary_max_pool_segmented = real
+    return calls
+
+
+def hold_b1(calls, label: str) -> float:
+    """B1 == its plain version exactly on captured calls (in f32 and
+    bf16); returns the largest |diff| (0)."""
+    err = 0.0
+    for i, (x, seg, levels) in enumerate(calls):
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype).contiguous()
+            got, _ = boundary_pool_cuda.boundary_max_pool_fwd(
+                xd, seg, levels=levels)
+            with boundary_pool.force_plain():
+                want = boundary_pool.boundary_max_pool_segmented(
+                    xd, seg, levels)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(f'B1 != plain on {label} call {i} '
+                                     f'{tuple(x.shape)} {dtype}')
+    return err
+
+
+def span_clips(n: int, seed: int) -> torch.Tensor:
+    """(n, SPAN, CROP, CROP, 3) uint8 frames made on the card."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    return torch.randint(0, 256, (n, SPAN, CROP, CROP, 3), generator=g,
+                         device='cuda', dtype=torch.uint8)
+
+
+def phase_shared_kernels(state_dict):
+    """B1 at the shared forward's shapes and B4 at the span shape."""
+    pipe = InferencePipeline(build_model(state_dict, torch.bfloat16,
+                                         'cuda'), clip_length=FRAMES,
+                             crop_size=CROP, shared_backbone=True,
+                             use_edl=True, os_head=True, device='cuda')
+    n = SPAN_CHUNK
+    frames = span_clips(1, 5)[0]
+    buf = torch.cat([frames] * 2 + [frames[:8]])       # 2 spans + 8
+    bases = torch.arange(n, device='cuda') % 9         # spans at 0 .. 8
+    local = torch.tensor([0, 128, 256, 384], device='cuda').repeat(n, 1)
+    calls = capture_calls(lambda: pipe.span_decode([buf], bases, local,
+                                                   2 * SPAN + 8))
+    assert len(calls) == POOLS_PER_FORWARD, len(calls)
+    err = hold_b1(calls, 'the shared forward')
+
+    def grouped():
+        for x, seg, levels in calls:
+            boundary_pool_cuda.boundary_max_pool_fwd(x, seg, levels=levels)
+
+    def plain():
+        with boundary_pool.force_plain():
+            for x, seg, levels in calls:
+                boundary_pool.boundary_max_pool_segmented(x, seg, levels)
+
+    b1 = {'ms': device_ms(grouped, reps=20),
+          'plain_ms': device_ms(plain, reps=3),
+          'bound_ms': sum(pool_bound_ms(*c) for c in calls)}
+    log(f'B1 == plain exactly on the {len(calls)} pool calls of one shared '
+        f'forward ({n} spans, {n * SPAN_GROUP} windows: x '
+        f'{[tuple(c[0].shape) for c in calls]}), f32 and bf16; per forward '
+        f'{b1["ms"]:.4f} ms (plain {b1["plain_ms"]:.4f}, group bound '
+        f'{b1["bound_ms"]:.6f}, {b1["bound_ms"] / b1["ms"]:.3f} of it); '
+        f'{card_line()}')
+    del pipe, calls, buf
+    torch.cuda.empty_cache()
+
+    # B4 (stem_pack96_v2) at the span shape: the shared path with
+    # model.stem_pallas packs (spans, SPAN) frames, t_out SPAN / 2
+    x = span_clips(16, 6).permute(0, 4, 1, 2, 3).to(torch.bfloat16)
+    xp = layers.space_to_depth_pad(x, STEM_KERNEL)
+    del x
+    kernel, plain_pack, kw = PACKS['v2 fp=1']
+    got, want = kernel(xp, **kw), plain_pack(xp, **kw)
+    if not torch.equal(got, want):
+        raise AssertionError('B4 != plain at the span shape')
+    b4 = {'ms': device_ms(lambda: kernel(xp, **kw), reps=10),
+          'plain_ms': device_ms(lambda: plain_pack(xp, **kw), reps=3),
+          'library_ms': device_ms(lambda: stem_pack.stem_pack_strided(
+              xp, layout='v2', **kw), reps=5),
+          'bound_ms': pack_bound_ms(xp)}
+    log(f'B4 at the span shape: xp {tuple(xp.shape)} bf16 (t_out '
+        f'{got.shape[1]}), kernel == plain exactly; {b4["ms"]:.4f} ms '
+        f'(plain {b4["plain_ms"]:.4f}, strided copy '
+        f'{b4["library_ms"]:.4f}, bound {b4["bound_ms"]:.4f}, '
+        f'{b4["bound_ms"] / b4["ms"]:.3f} of it); {card_line()}')
+    del xp, got, want
+    torch.cuda.empty_cache()
+    return err, b1, b4
+
+
+def phase_shared_f32(state_dict):
+    """Interior alignment and card == CPU for the shared path, f32."""
+    with tf32_off(), torch.inference_mode():
+        model = build_model(state_dict, torch.float32, 'cuda')
+        u8 = span_clips(1, 7)[0]
+        x = pipeline_mod.device_windows(u8, torch.zeros(
+            1, dtype=torch.long, device='cuda'), SPAN, SPAN)
+        # the second window of the span; interior steps: those at least
+        # 56 frames (the receptive field's reach) from the window's edges
+        off = 128
+        full = model.backbone_features(x)
+        win = model.backbone_features(x[:, :, off:off + FRAMES].contiguous())
+        worst = 0.0
+        inner = {s: slice(56 // s, FRAMES // s - 56 // s) for s in (4, 8)}
+        for key, s in (('Mixed_4f', 4), ('Mixed_5c', 8)):
+            inner_s = inner[s]
+            shared = full[key][:, :, off // s:off // s + FRAMES // s]
+            torch.testing.assert_close(shared[:, :, inner_s],
+                                       win[key][:, :, inner_s], atol=2e-5,
+                                       rtol=1e-5, msg=lambda m: f'{key}: {m}')
+            worst = max(worst, (shared[:, :, inner_s]
+                                - win[key][:, :, inner_s]).abs().max().item())
+            edge = (shared[:, :, 0] - win[key][:, :, 0]).abs().max().item()
+            assert edge > 1e-4, (key, edge)
+        log(f'f32: a window\'s Mixed_4f steps [{inner[4].start}, '
+            f'{inner[4].stop}) and Mixed_5c steps [{inner[8].start}, '
+            f'{inner[8].stop}) sliced from a {SPAN}-frame span equal the '
+            f'per-window '
+            f'backbone\'s (atol 2e-5, rtol 1e-5; worst |diff| {worst:.3g}); '
+            f'the edge steps differ (real context vs zero padding)')
+
+        # card == CPU on one short video: one span, 2 windows
+        rng = np.random.RandomState(8)
+        video = rng.randint(0, 256, (300, 100, 100, 3), dtype=np.uint8)
+        decs = {}
+        for dev in ('cuda', 'cpu'):
+            pipe = InferencePipeline(build_model(state_dict, torch.float32,
+                                                 dev), clip_length=FRAMES,
+                                     crop_size=CROP, shared_backbone=True,
+                                     use_edl=True, os_head=True, device=dev)
+            offsets = pipeline_mod.snapped_offsets(300, FRAMES, 128)
+            bases, local, _ = pipeline_mod.span_plan(offsets, SPAN_GROUP)
+            buf = pipeline_mod.stage_frames(
+                pipeline_mod.transforms.center_crop(video, CROP),
+                pad_to=int(bases[-1]) + SPAN, device=dev)
+            t0 = time.perf_counter()
+            decs[dev] = pipe.span_decode([buf], torch.from_numpy(bases).to(
+                dev), torch.from_numpy(local).to(dev), 300)
+            if dev == 'cpu':
+                cpu_s = time.perf_counter() - t0
+        for field in ('segments', 'scores', 'uncertainty', 'actionness'):
+            got = getattr(decs['cuda'], field).float().cpu()
+            torch.testing.assert_close(got, getattr(decs['cpu'], field),
+                                       rtol=1e-3, atol=2e-3,
+                                       msg=lambda m: f'{field}: {m}')
+        log(f'card == CPU on the shared decode of a 300-frame video '
+            f'({len(offsets)} windows, 1 span; rtol 1e-3, atol 2e-3), f32; '
+            f'CPU {cpu_s:.1f} s')
+    del model, pipe, decs
+    torch.cuda.empty_cache()
+
+
+def phase_shared(root, dirs, videos, state_dict):
+    log(f'== phase 26: shared-backbone inference (testing.shared_backbone: '
+        f'{SPAN_GROUP}-window spans of {SPAN} frames, up to {SPAN_CHUNK} '
+        f'spans per forward) at full width on the packed videos, per video '
+        f'and packed, in turns with the default packed path (bf16); '
+        f'{card_line()}')
+    plan = shared_plan([(t, c) for t, c, _ in videos.values()])
+    base = packed_overrides(root, dirs)
+    cfgs = {mode: load_config(CONFIG, overrides=dict(base, **extra, **{
+        'testing.output_json': f'{mode}.json'}))
+        for mode, extra in (
+            ('shared', {'testing.shared_backbone': True}),
+            ('shared_per_video', {'testing.shared_backbone': True,
+                                  'testing.packed': False}),
+            ('default', {}))}
+    path, wall, cnt, peak = timed_run(cfgs['shared'])
+    n_props = check_detection_json(path, videos)
+    assert cnt == (POOLS_PER_FORWARD * plan['packed'], 0, 0, 0), (cnt, plan)
+    launches = cnt[0]
+    n = plan['windows']
+    log(f'{n} windows in {plan["spans"]} spans, {plan["packed"]} forwards '
+        f'packed ({plan["per_video"]} per video); B1 launches {cnt[0]} '
+        f'({POOLS_PER_FORWARD} per forward); {n_props} proposals; first '
+        f'run {wall:.3f} s, {n / wall:.2f} windows/s, peak {peak:.2f} GiB')
+    path, wall, cnt, peak = timed_run(cfgs['shared_per_video'])
+    check_detection_json(path, videos)
+    assert cnt[0] == POOLS_PER_FORWARD * plan['per_video'], (cnt, plan)
+    launches += cnt[0]
+    log(f'per video (testing.packed: false): {wall:.3f} s, '
+        f'{n / wall:.2f} windows/s, B1 launches {cnt[0]}, peak '
+        f'{peak:.2f} GiB')
+    walls, peaks = {'default': [], 'shared': []}, {}
+    for mode in ('default', 'shared', 'shared', 'default'):
+        path, wall, cnt, peak = timed_run(cfgs[mode])
+        walls[mode].append(wall)
+        peaks[mode] = max(peaks.get(mode, 0.0), peak)
+        if mode == 'shared':
+            assert cnt[0] == POOLS_PER_FORWARD * plan['packed'], cnt
+    for mode, ws in walls.items():
+        log(f'{mode} packed: warm runs in turns {[round(w, 3) for w in ws]}'
+            f' s, {[round(n / w, 2) for w in ws]} windows/s, peak '
+            f'{peaks[mode]:.2f} GiB')
+    share = busy_share(lambda: run_test(cfgs['shared']),
+                       'shared packed run_test (warm)')
+    err, b1, b4 = phase_shared_kernels(state_dict)
+    phase_shared_f32(state_dict)
+    # model.stem_pallas on the spans: B4 packs every span, on 4 videos
+    subset = list(videos.items())[:F32_SUBSET]
+    sub_plan = shared_plan([(t, c) for _, (t, c, _) in subset])
+    path, wall, cnt, _ = timed_run(load_config(CONFIG, overrides=dict(
+        packed_overrides(root, dirs, 'subset_info.csv'), **STEM_CFG, **{
+            'testing.shared_backbone': True,
+            'testing.output_json': 'shared_stem.json'})))
+    check_detection_json(path, dict(subset))
+    assert cnt == (POOLS_PER_FORWARD * sub_plan['packed'], 0, 0,
+                   sub_plan['packed']), (cnt, sub_plan)
+    log(f'model.stem_pallas on spans (4 videos): {wall:.3f} s, B1 '
+        f'{cnt[0]}, B4 {cnt[3]} launches (1 per forward)')
+    return {'launches': launches, 'err': err, 'b1': b1, 'b4': b4,
+            'b4_launches': cnt[3], 'stem_b1': cnt[0], 'share': share,
+            'walls': walls}
+
+
+def rpl_cfg(name: str):
+    return load_config(f'configs/thumos14_open_{name}.yaml')
+
+
+def rpl_terms_and_grads(model, cfg, batch, edl=None):
+    """Loss terms and parameter gradients of one RPL / GCPL step."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    cost, terms, _ = compute_losses(model, factory.build_loss_config(cfg),
+                                    factory.build_loss_weights(cfg),
+                                    device_ingest(batch), edl, 1)
+    cost.backward()
+    return ({k: v.detach() for k, v in terms.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None})
+
+
+def phase_rpl(train_cfg_path):
+    log('== phase 27: the RPL and GCPL baselines (configs/thumos14_open_'
+        '{rpl,gcpl}.yaml): a bs=1 f32 step, TF32 off, kernel path vs plain '
+        'path and card vs CPU; step time against the OpenTAL step; '
+        'tools.train for 2 steps with a checkpoint, then run_test')
+    out = {'fwd': 0, 'bwd': 0, 'infer': 0}
+    with tf32_off():
+        batch = train_batch(1, FRAMES, CROP, 12, 'cuda')
+        for name in ('rpl', 'gcpl'):
+            cfg = rpl_cfg(name)
+            model = train_model(cfg, FRAMES, CROP, 'cuda')
+            f0, b0 = boundary_pool_cuda.LAUNCHES, \
+                boundary_pool_cuda.BWD_LAUNCHES
+            terms_k, grads_k = rpl_terms_and_grads(model, cfg, batch)
+            torch.cuda.synchronize()
+            launched = (boundary_pool_cuda.LAUNCHES - f0,
+                        boundary_pool_cuda.BWD_LAUNCHES - b0)
+            assert launched == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), launched
+            with boundary_pool.force_plain():
+                terms_p, grads_p = rpl_terms_and_grads(model, cfg, batch)
+            for k in terms_k:
+                assert torch.equal(terms_k[k], terms_p[k]), (name, k)
+            worst = 0.0
+            for n_, gk in grads_k.items():
+                scale = grads_p[n_].abs().max().item()
+                torch.testing.assert_close(gk, grads_p[n_], rtol=1e-5,
+                                           atol=1e-5 * scale,
+                                           msg=lambda m: f'{name} {n_}: {m}')
+                if scale > 0:
+                    worst = max(worst, (gk - grads_p[n_]).abs().max().item()
+                                / scale)
+            radius = 'coarse_pyramid_detection.rpl_radius'
+            assert (radius in grads_k) == (name == 'rpl'), name
+            cpu_model = train_model(cfg, FRAMES, CROP, 'cpu')
+            terms_c, grads_c = rpl_terms_and_grads(
+                cpu_model, cfg, {k: v.cpu() for k, v in batch.items()})
+            for k in terms_c:
+                torch.testing.assert_close(terms_k[k].cpu(), terms_c[k],
+                                           rtol=1e-3, atol=2e-3,
+                                           msg=lambda m: f'{name} {k}: {m}')
+            gn_d = global_norm(grads_k.values()).item()
+            gn_c = global_norm(grads_c.values()).item()
+            torch.testing.assert_close(torch.tensor(gn_d),
+                                       torch.tensor(gn_c), rtol=1e-3,
+                                       atol=2e-3)
+            log(f'{name}: {launched[0]} B1 + {launched[1]} B2 launches; '
+                f'losses equal the plain path\'s bit for bit, gradients '
+                f'within rtol 1e-5 (worst |diff| / max {worst:.3g}); card == '
+                f'CPU (rtol 1e-3, atol 2e-3): cost '
+                f'{terms_k["cost"].item():.6f} vs '
+                f'{terms_c["cost"].item():.6f}, loss_c '
+                f'{terms_k["loss_c"].item():.6f}, grad norm {gn_d:.6f} vs '
+                f'{gn_c:.6f}')
+            del model, cpu_model, grads_k, grads_p, grads_c
+        torch.cuda.empty_cache()
+
+    # step time (PyTorch's defaults, as phase 8): OpenTAL, RPL, GCPL in
+    # turns, bs=1
+    states, cfgs = {}, {'opental': load_config(CONFIG),
+                        'rpl': rpl_cfg('rpl'), 'gcpl': rpl_cfg('gcpl')}
+    for name, cfg in cfgs.items():
+        model = train_model(cfg, FRAMES, CROP, 'cuda')
+        edl = factory.build_loss_config(cfg).edl
+        states[name] = TrainState(
+            model=model, optimizer=make_optimizer(model, 1e-5, 1e-3),
+            edl_state=None if edl is None else EDLState.create(edl, 'cuda'))
+    batch = train_batch(1, FRAMES, CROP, 5, 'cuda')
+
+    def step(name):
+        cfg = cfgs[name]
+        train_step(states[name], factory.build_loss_config(cfg),
+                   factory.build_loss_weights(cfg), batch, 11)
+
+    for name in cfgs:
+        step(name)
+    ms, mem = {n: 0.0 for n in cfgs}, {n: 0.0 for n in cfgs}
+    order = list(cfgs) + list(cfgs)[::-1]
+    for name in order:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(name)
+        torch.cuda.synchronize()
+        ms[name] += (time.perf_counter() - t0) * 1e3 / 5 / 2
+        mem[name] = max(mem[name], torch.cuda.max_memory_allocated() / 2**30)
+    log(f'bs=1 step (f32, TF32 as default), in turns: ' + ', '.join(
+        f'{n} {ms[n]:.1f} ms' for n in cfgs) + '; peak (the three states '
+        f'resident) ' + ', '.join(f'{n} {mem[n]:.2f} GiB' for n in cfgs)
+        + f'; {card_line()}')
+    out['ms'], out['peak'] = ms, mem
+    del states, batch
+    torch.cuda.empty_cache()
+
+    # tools.train: 2 steps from a checkpoint of the seeded start, saved as
+    # epoch 10; the CLI resumes it for epoch 11, which saves itself; then
+    # run_test on the result
+    with open(train_cfg_path) as f:
+        data = yaml.safe_load(f)
+    for name in ('rpl', 'gcpl'):
+        base = rpl_cfg(name)
+        cfg_data = copy.deepcopy(data)
+        cfg_data['model'] = dict(base.get_path('model'))
+        cfg_data['model']['backbone_model'] = ''
+        tr = cfg_data['training']
+        for key in ('edl_loss', 'edl_config', 'act_config'):
+            tr.pop(key, None)
+        tr.update(rpl_loss=True, rpl_config=dict(base.get_path(
+            'training.rpl_config')), focal_loss=False)
+        ckdir = os.path.join(os.path.dirname(train_cfg_path), f'ck_{name}')
+        tr['checkpoint_path'] = ckdir
+        cfg_data['testing']['checkpoint_path'] = os.path.join(
+            ckdir, 'checkpoint-latest.ckpt')
+        cfg_data['testing']['output_json'] = f'{name}.json'
+        path = os.path.join(os.path.dirname(train_cfg_path),
+                            f'{name}.yaml')
+        with open(path, 'w') as f:
+            yaml.safe_dump(cfg_data, f)
+        cfg = load_config(path)
+        state = train_init_state(cfg, torch.device('cuda'), 0, FRAMES, CROP)
+        checkpoint.save(ckdir, SAVE_AFTER_EPOCH, state)
+        del state
+        reset_counts()
+        t0 = time.perf_counter()
+        train_cli.main([path, '--max_steps_per_epoch', '2', '--resume',
+                        '-1', '--max_epoch', str(SAVE_AFTER_EPOCH + 1)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = boundary_pool_cuda.LAUNCHES, \
+            boundary_pool_cuda.BWD_LAUNCHES
+        assert (fwd, bwd) == (2 * TRAIN_STEP_FWD, 2 * TRAIN_STEP_BWD), \
+            (fwd, bwd)
+        payload = torch.load(checkpoint.epoch_path(ckdir,
+                                                   SAVE_AFTER_EPOCH + 1),
+                             map_location='cpu', weights_only=True)
+        radius = payload['model']['coarse_pyramid_detection.rpl_radius']
+        with open(os.path.join(ckdir, 'metrics.jsonl')) as f:
+            recs = [json.loads(line) for line in f]
+        assert len(recs) == 2 and all(
+            math.isfinite(v) for r in recs for v in r.values()), recs
+        out['fwd'] += fwd
+        out['bwd'] += bwd
+        reset_counts()
+        cfg = load_config(path)
+        pipe, _, _ = build_pipeline(cfg)
+        assert pipe.use_gcpl == (name == 'gcpl')
+        del pipe
+        json_path = run_test(cfg)
+        with open(json_path) as f:
+            results = json.load(f)['results']
+        n_props = sum(len(v) for v in results.values())
+        assert n_props > 0 and all(
+            math.isfinite(v) for props in results.values() for p in props
+            for v in [p['score'], *p['segment']]), n_props
+        out['infer'] += boundary_pool_cuda.LAUNCHES
+        scores = 'negated distances' if name == 'gcpl' else 'distances'
+        log(f'{name}: tools.train 2 steps in {wall:.1f} s (costs '
+            f'{[round(r["cost"], 4) for r in recs]}, radius '
+            f'{radius.item():.6f}), B1 {fwd} + B2 {bwd} launches; run_test '
+            f'on the checkpoint ({scores}): {n_props} proposals, B1 '
+            f'{boundary_pool_cuda.LAUNCHES}')
+    return out
+
+
+def openmax_config(root):
+    """configs/thumos14_openmax.yaml on a synthetic dataset of its 15
+    known classes (2 training and 2 test videos at 112 x 112), with
+    seeded closed-set weights; returns (YAML path, loaded config)."""
+    data = os.path.join(root, 'openmax_synth')
+    synth_path = make_synthetic_dataset(data, n_train=2, n_test=2,
+                                        clip_length=FRAMES, crop_size=CROP,
+                                        spatial=112, num_known=15, seed=3,
+                                        temporal_ramp=True)
+    with open(synth_path) as f:
+        synth = yaml.safe_load(f)
+    with open('configs/thumos14_openmax.yaml') as f:
+        raw = yaml.safe_load(f)
+    raw['dataset'] = synth['dataset']
+    raw['model']['backbone_model'] = ''
+    ckpt = os.path.join(data, 'softmax.ckpt')
+    raw['testing'].update(checkpoint_path=ckpt,
+                          output_path=os.path.join(data, 'out'))
+    path = os.path.join(data, 'openmax.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(raw, f)
+    cfg = load_config(path)
+    model = factory.init_weights(factory.build_model(
+        cfg, frame_num=FRAMES, crop_size=CROP), seed=9)
+    torch.save(model.state_dict(), ckpt)
+    return path, cfg
+
+
+def phase_openmax(root):
+    log('== phase 28: OpenMax (configs/thumos14_openmax.yaml: softmax '
+        'heads, no os_head, no EDL) on synthetic videos of its 15 classes: '
+        'stage 1 (MAVs of the get_feat taps, kernel path == plain path), '
+        'stage 2 (Weibull fit), stage 3 (recalibrated test), the CLI, '
+        'eval_open')
+    path, cfg = openmax_config(root)
+    out_dir = cfg.testing['output_path']
+    mav = {'kernel': os.path.join(out_dir, 'mav_dist'),
+           'plain': os.path.join(out_dir, 'mav_dist_plain')}
+    t = {}
+    with tf32_off():
+        reset_counts()
+        t0 = time.perf_counter()
+        test_openmax.compute_mav_dist(cfg, mav['kernel'])
+        torch.cuda.synchronize()
+        t['stage 1'] = time.perf_counter() - t0
+        stage1 = boundary_pool_cuda.LAUNCHES
+        with boundary_pool.force_plain():
+            test_openmax.compute_mav_dist(cfg, mav['plain'])
+    names = sorted(os.listdir(mav['kernel']))
+    assert names == sorted(os.listdir(mav['plain'])) and len(names) == 15
+    n_feats = 0
+    for fn in names:
+        a = np.load(os.path.join(mav['kernel'], fn))
+        b = np.load(os.path.join(mav['plain'], fn))
+        for k in b.files:
+            assert np.array_equal(a[k], b[k]), (fn, k)
+        n_feats += len(a['dist']) + len(a['dist_prop'])
+    _, idx_to_class = get_class_index_map(
+        cfg.get_path('dataset.class_info_path'))
+    class_names = [idx_to_class[i] for i in sorted(idx_to_class)]
+    t0 = time.perf_counter()
+    wm, wpm = weibull_fitting(mav['kernel'], class_names)
+    t['stage 2'] = time.perf_counter() - t0
+    fitted = sum(m['model'][0] is not None for m in wm.values())
+    reset_counts()
+    t0 = time.perf_counter()
+    json_path = test_openmax.run_openmax_test(cfg, mav['kernel'])
+    torch.cuda.synchronize()
+    t['stage 3'] = time.perf_counter() - t0
+    stage3 = boundary_pool_cuda.LAUNCHES
+    with open(cfg.get_path('dataset.testing.video_info_path')) as f:
+        lengths = {ln.split(',')[0]: int(ln.split(',')[4])
+                   for ln in f.read().splitlines()[1:]}
+    n_props = check_detection_json(json_path, lengths)
+    forwards = sum(-(-len(window_offsets(c, FRAMES, 128))
+                     // test_openmax.MAX_BATCH) for c in lengths.values())
+    assert stage3 == POOLS_PER_FORWARD * forwards, (stage3, forwards)
+    first = json_path + '.first'
+    shutil.copy(json_path, first)
+    test_openmax.main([path])        # stages 2 and 3; the MAVs are read
+    worst = assert_same_json(first, json_path, 'OpenMax CLI')
+    anno = os.path.dirname(cfg.get_path('dataset.class_info_path'))
+    eval_open.main([json_path, os.path.join(anno, 'gt_open.json'),
+                    '--cls_idx_known',
+                    cfg.get_path('dataset.class_info_path'), '--open_set'])
+    with open(os.path.join(out_dir, 'eval_open.txt')) as f:
+        avg = f.read().strip().splitlines()[-1]
+    vals = [float(v.split(':')[1]) for v in avg.split(', ')]
+    assert len(vals) == 4 and all(math.isfinite(v) for v in vals), avg
+    log(f'stage 1: {n_feats} positive features over the training clips, '
+        f'15 MAV files equal to the plain path\'s exactly, B1 {stage1}; '
+        f'stage 2: {fitted} of 15 classes fitted; stage 3: {len(lengths)} '
+        f'videos, {n_props} proposals, B1 {stage3} ({forwards} forwards); '
+        f'times ' + ', '.join(f'{k} {v:.3f} s' for k, v in t.items())
+        + f'; the CLI again (MAVs read back) equal per proposal (worst '
+        f'{worst:.3g}); eval_open --open_set: {avg}; {card_line()}')
+    return {'launches': stage1 + stage3, 'times': t}
+
+
+def write_yaml(cfg, path):
+    with open(path, 'w') as f:
+        yaml.safe_dump(json.loads(json.dumps(cfg)), f)
+    return path
+
+
+def phase_cross_search(root, lengths):
+    log('== phase 29: cross-data (tools.test_cross_data: the THUMOS test '
+        'videos of phase 6 and synthetic ActivityNet videos) and '
+        'tools.search_param over a 2 x 2 grid, its cache re-read')
+    anet_root = os.path.join(root, 'anet_cross')
+    make_synthetic_anet_dataset(anet_root, n_train=1, n_val=4,
+                                clip_length=768, crop_size=CROP,
+                                spatial=112, seed=6)
+    info = os.path.join(anet_root, 'annotations', 'video_info.json')
+    npy = os.path.join(anet_root, 'npy')
+    with open(info) as f:
+        infos = json.load(f)
+    val = {k: v for k, v in infos.items() if v['subset'] == 'validation'}
+    # the overlapping class: the first validation video's first label
+    dropped = next(iter(val.values()))['annotations'][0]['label']
+    overlap = os.path.join(root, 'overlapping.txt')
+    with open(overlap, 'w') as f:
+        f.write(dropped + '\n')
+    kept = {k[2:] for k, v in val.items()
+            if not any(a['label'] == dropped for a in v['annotations'])}
+    cfg = synthetic_test_config(root, **{
+        'testing.output_path': os.path.join(root, 'out_cross')})
+    forwards = forwards_of(lengths) + ingest_plan(
+        [(v['frame_num'], max(v['frame_num'], 768), 0)
+         for v in val.values()])[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    merged = test_cross_data.run_cross_data(cfg, info, npy, overlap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cross = boundary_pool_cuda.LAUNCHES
+    assert cross == POOLS_PER_FORWARD * forwards, (cross, forwards)
+    with open(merged) as f:
+        results = json.load(f)['results']
+    assert set(results) == set(lengths) | kept, (set(results), kept)
+    n_props = sum(len(v) for v in results.values())
+    assert all(math.isfinite(p['score']) for v in results.values()
+               for p in v)
+    log(f'cross-data: {len(lengths)} THUMOS + {len(val)} ANet videos '
+        f'({len(val) - len(kept)} dropped for {dropped}), {n_props} '
+        f'proposals, '
+        f'{wall:.3f} s, B1 {cross} ({forwards} forwards)')
+
+    # search_param on two of the videos, top_k 200, a GT of 3 segments
+    # per video
+    names = list(lengths)[:2]
+    sub_info = os.path.join(root, 'video_info_2.csv')
+    with open(os.path.join(root, 'video_info.csv')) as f:
+        rows = f.read().splitlines()
+    with open(sub_info, 'w') as f:
+        f.write('\n'.join(rows[:3]) + '\n')
+    rng = np.random.RandomState(4)
+    db = {}
+    for name in names:
+        secs = lengths[name] / 10.0
+        anns = []
+        for _ in range(3):
+            s = rng.uniform(0, secs - 10)
+            anns.append({'segment': [s, s + rng.uniform(2, 10)],
+                         'label': f'Class{rng.randint(1, 16):02d}'})
+        db[name] = {'subset': 'test', 'annotations': anns}
+    gt = os.path.join(root, 'search_gt.json')
+    with open(gt, 'w') as f:
+        json.dump({'database': db}, f)
+    scfg = synthetic_test_config(root, **{
+        'dataset.testing.video_info_path': sub_info,
+        'testing.top_k': 200,
+        'testing.output_path': os.path.join(root, 'out_search')})
+    path = write_yaml(scfg, os.path.join(root, 'search.yaml'))
+    args = [path, '--gt_json', gt, '--sigmas', '0.3', '0.7',
+            '--conf_threshs', '0.01', '0.05']
+    runs = []
+    for _ in range(2):
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            search_param.main(args)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, boundary_pool_cuda.LAUNCHES,
+                     buf.getvalue().strip().splitlines()))
+    fwd = sum(-(-len(window_offsets(lengths[n], FRAMES, 128))
+                // search_param.MAX_BATCH) for n in names)
+    assert runs[0][1] == POOLS_PER_FORWARD * fwd and runs[1][1] == 0, \
+        [r[1] for r in runs]
+    assert runs[0][2] == runs[1][2] and len(runs[0][2]) == 5, runs
+    log(f'search_param: first run {runs[0][0]:.3f} s (B1 {runs[0][1]}, '
+        f'{fwd} forwards), second {runs[1][0]:.3f} s reading the cache (B1 '
+        f'0), the same mAPs: {runs[0][2]}')
+    return {'launches': cross + runs[0][1], 'cross_s': wall,
+            'search_s': (runs[0][0], runs[1][0])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false: this run '
@@ -2522,6 +3193,10 @@ def main() -> int:
         f'(nvcc {_build.BUILD_SECONDS})')
     for name, text in _build.BUILD_LOG.items():
         log(f'-- {name}.cu ptxas:\n{text.strip()}')
+    t0 = time.perf_counter()
+    log(f'libmr (OpenMax\'s Weibull fits, host code) built with g++ into '
+        f'{os.path.relpath(libmr.build())} in '
+        f'{time.perf_counter() - t0:.2f} s')
 
     cfg = load_config(CONFIG)
     seeded = factory.init_weights(factory.build_model(
@@ -2561,12 +3236,14 @@ def main() -> int:
         b1_w128_err, b4_flow = phase_fused_kernels(state_dict, flow_sd)
         fused = phase_fusion(root, dirs, videos)
         threshold, thr_launches = phase_threshold(root, dirs, videos)
+        shared = phase_shared(root, dirs, videos, state_dict)
         shutil.rmtree(dirs['rgb'])
         shutil.rmtree(dirs['flow'])
         launches += packed['launches'] + fused[False]['counts'][0] \
-            + fused[True]['counts'][0] + thr_launches
-        v2_launches += fused[True]['counts'][3]
-        max_err = max(max_err, b1_w128_err)
+            + fused[True]['counts'][0] + thr_launches \
+            + shared['launches'] + shared['stem_b1']
+        v2_launches += fused[True]['counts'][3] + shared['b4_launches']
+        max_err = max(max_err, b1_w128_err, shared['err'])
 
         anet_sd = factory.init_weights(factory.build_model(
             anet_cfg(), frame_num=ANET_FRAMES, crop_size=CROP,
@@ -2584,6 +3261,12 @@ def main() -> int:
         train_fwd += anet_train_fwd
         train_bwd += anet_train_bwd
         v1_launches = phase_train_end_to_end_stem(root, train_cfg)
+        rpl = phase_rpl(train_cfg)
+        train_fwd += rpl['fwd']
+        train_bwd += rpl['bwd']
+        openmax = phase_openmax(root)
+        cross = phase_cross_search(root, lengths)
+        launches += rpl['infer'] + openmax['launches'] + cross['launches']
         phase_train_speed(cfg)
         phase_throughput(state_dict, root, lengths)
     finally:
@@ -2599,11 +3282,19 @@ def main() -> int:
         f'batch, busy {anet["share"]:.1%}; threshold {anet["threshold"]}; '
         f'launches B1 {anet["launches"]} (inference), {anet_train_fwd} '
         f'(training), B2 {anet_train_bwd}')
+    log(f'open-set slice: shared packed warm {shared["walls"]["shared"]} s '
+        f'vs default {shared["walls"]["default"]} s, busy '
+        f'{shared["share"]:.1%}; B1 per shared forward {shared["b1"]}; B4 at '
+        f'the span shape {shared["b4"]}; step ms {rpl["ms"]}, peak GiB '
+        f'{rpl["peak"]}; OpenMax stages {openmax["times"]}; cross-data '
+        f'{cross["cross_s"]:.3f} s, search_param {cross["search_s"]}')
     log(f'boundary_max_pool_fwd launches: {launches} in the inference runs '
-        f'(per-video set, packed, fused off and on, calibration; ANet: '
-        f'first, fused, binary, calibration), {train_fwd} in the training '
-        f'runs (THUMOS, ANet); stem pack v2 {v2_launches} in '
-        f'the stem_pallas inference runs (per-video set, fused), v1 '
+        f'(per-video set, packed, fused off and on, calibration, shared '
+        f'packed and per video and with stem_pallas, RPL / GCPL run_test, '
+        f'OpenMax, cross-data, search_param; ANet: first, fused, binary, '
+        f'calibration), {train_fwd} in the training runs (THUMOS, ANet, '
+        f'RPL, GCPL); stem pack v2 {v2_launches} in '
+        f'the stem_pallas inference runs (per-video set, fused, shared), v1 '
         f'{v1_launches} in the stem_pallas training run; B4 at C = 2 '
         f'(W=128 bf16) {b4_flow[PACKED_BATCH]}, W=32 {b4_flow[32]}; '
         f'threshold {threshold}')

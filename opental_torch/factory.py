@@ -14,7 +14,8 @@ from opental_torch.losses.edl import EDLConfig
 from opental_torch.losses.multisegment import LossConfig
 from opental_torch.models.anet_pyramid import reinit_anet_heads
 from opental_torch.models.bdnet import BDNet
-from opental_torch.models.layers import FrozenBatchNorm, GroupNorm32
+from opental_torch.models.layers import (FrozenBatchNorm, GroupNorm32,
+                                         RPLHead)
 from opental_torch.train.step import LossWeights
 
 
@@ -52,9 +53,8 @@ def build_model(cfg: Config, frame_num: Optional[int] = None,
     flags = model_flags(cfg)
     if in_channels is not None:
         flags['in_channels'] = in_channels
-    for flag in ('use_rpl', 'transformer'):
-        if flags[flag]:
-            raise NotImplementedError(f'model.{flag} is not ported yet')
+    if flags['transformer']:
+        raise NotImplementedError('model.transformer is not ported yet')
     if dtype is None and cfg.get_path('model.compute_dtype') in (
             'bfloat16', 'bf16'):
         dtype = torch.bfloat16
@@ -73,7 +73,7 @@ def build_model(cfg: Config, frame_num: Optional[int] = None,
         # the packed space-to-depth stem, default off, as the JAX factory
         # reads it (factory.py:60)
         stem_pallas=bool(cfg.get_path('model.stem_pallas', False)),
-        arch=flags['arch'],
+        arch=flags['arch'], use_rpl=bool(flags['use_rpl']),
         dtype=None if dtype == torch.float32 else dtype)
 
 
@@ -90,8 +90,6 @@ def build_loss_config(cfg: Config) -> LossConfig:
     flags = model_flags(cfg)
     num_cls = flags['num_classes'] - (1 if flags['os_head'] else 0)
     kind = cls_loss_type(cfg)
-    if kind == 'rpl':
-        raise NotImplementedError('the RPL loss is not ported yet')
     edl = None
     if kind == 'edl':
         e = cfg.get_path('training.edl_config', {}) or {}
@@ -118,6 +116,7 @@ def build_loss_config(cfg: Config) -> LossConfig:
             edl = edl._replace(ibm_exp=True,
                                ibm_coeff=e.get('ibm_coeff', 10.0))
     act = cfg.get_path('training.act_config', {}) or {}
+    rpl = cfg.get_path('training.rpl_config', {}) or {}
     return LossConfig(
         num_classes=num_cls,
         clip_length=cfg.get_path('dataset.training.clip_length', 256),
@@ -127,6 +126,9 @@ def build_loss_config(cfg: Config) -> LossConfig:
         os_head=flags['os_head'],
         act_margin=act.get('margin', 1.0),
         act_weight=act.get('weight', 0.1),
+        rpl_weight_pl=rpl.get('weight_pl', 0.1),
+        rpl_temperature=rpl.get('temperature', 1.0),
+        rpl_gcpl=rpl.get('gcpl', False),
         variant=flags['arch'],
     )
 
@@ -148,10 +150,11 @@ def init_train_weights(model: torch.nn.Module, seed: int = 0
                        ) -> torch.nn.Module:
     """Seeded starting weights for training, as the JAX package's init and
     the reference's reset_params give them: glorot-uniform convolutions
-    with zero biases; norms, BN statistics and the ScaleExp scales at
-    their defaults. An ANet BDNet then takes the normal(0, 0.01) re-init
-    of its tower and head convolutions (`reinit_anet_heads`, as
-    `opental_tpu/train/loop.py:76-82`)."""
+    with zero biases; RPL centers 0.1 x normal (`layers.py:469-471` of
+    the JAX package); the RPL radius, norms, BN statistics and the
+    ScaleExp scales at their defaults. An ANet BDNet then takes the
+    normal(0, 0.01) re-init of its tower and head convolutions
+    (`reinit_anet_heads`, as `opental_tpu/train/loop.py:76-82`)."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -159,6 +162,9 @@ def init_train_weights(model: torch.nn.Module, seed: int = 0
                 _glorot_(mod.weight, g)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, RPLHead):
+                mod.centers.copy_(0.1 * torch.randn(mod.centers.shape,
+                                                    generator=g))
     if getattr(model, 'arch', 'thumos') == 'anet':
         reinit_anet_heads(model.coarse_pyramid_detection, g)
     return model
@@ -172,7 +178,7 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     glorot-uniform convolutions, perturbed norms and BN statistics, class
     and center head biases spread by `HEAD_BIAS_STD`, and actionness head
     biases near +2, so that actionness clears its 0.5 gate with room and
-    class scores spread across conf_thresh."""
+    class scores spread across conf_thresh; RPL centers 0.1 x normal."""
     g = torch.Generator().manual_seed(seed)
 
     def normal(t, std, mean=0.0):
@@ -201,4 +207,6 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
             elif isinstance(mod, GroupNorm32):
                 normal(mod.weight, 0.1, 1.0)
                 normal(mod.bias, 0.1)
+            elif isinstance(mod, RPLHead):
+                normal(mod.centers, 0.1)
     return model

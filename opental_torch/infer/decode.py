@@ -32,12 +32,15 @@ def fuse_streams(out: Dict[str, torch.Tensor],
 
 def decode_windows(out: Dict[str, torch.Tensor], clip_length: int,
                    use_edl: bool = False, os_head: bool = False,
-                   score_func: str = 'softmax', evidence: str = 'exp'
-                   ) -> DecodedWindows:
+                   score_func: str = 'softmax', evidence: str = 'exp',
+                   negate_conf: bool = False) -> DecodedWindows:
     """Fuse refined offsets into coarse locs and compose scores
-    (test.py:112-140). All shapes (W, P, ...)."""
+    (test.py:112-140). All shapes (W, P, ...). negate_conf negates the
+    class outputs first: GCPL's scores are negative distances."""
     loc, prop_loc = out['loc'], out['prop_loc']
     conf, prop_conf = out['conf'], out['prop_conf']
+    if negate_conf:          # GCPL scores are negative distances (:85-87)
+        conf, prop_conf = -conf, -prop_conf
     center = out['center'][..., 0]
     priors = out['priors'][None, :, :1]              # (1, P, 1)
 

@@ -1,11 +1,10 @@
 """Window-batched video inference pipeline (PyTorch).
 
-Counterpart of `opental_tpu/infer/pipeline.py` (all but the
-shared-backbone mode, which raises); reference AFSD/thumos14/
-test.py:203-256. Windows of 256 frames at stride 128 run through the
-model (and, for two-stream fusion, the flow model, with every head
-averaged) and are decoded in batches; post-processing runs either fused
-on the device (per-class top-k preselect + batched soft-NMS, the
+Counterpart of `opental_tpu/infer/pipeline.py`; reference
+AFSD/thumos14/test.py:203-256. Windows of 256 frames at stride 128 run
+through the model (and, for two-stream fusion, the flow model, with every
+head averaged) and are decoded in batches; post-processing runs either
+fused on the device (per-class top-k preselect + batched soft-NMS, the
 default) or on the host (numpy soft-NMS per class, the reference's
 semantics; with `device_nms` each class's block on the device).
 
@@ -21,6 +20,17 @@ Ingest modes, as the JAX package's (`run_videos` routes):
   as float32 per video (`stack_windows`) or as uint8 packed across
   videos (`stack_windows_u8` + `ingest_windows`).
 Every mode gives each window the same input, so the proposals agree.
+
+Shared backbone (`shared_backbone=True`, `testing.shared_backbone`): the
+backbone runs once over a span of `shared_group` (4) consecutive windows,
+stride * (k - 1) + clip + 8 frames, and each window's Mixed_4f / Mixed_5c
+slice (at lo // 4, lo // 8 of its span) goes through the pyramid and
+heads. Per video (`_run_video_shared`) or packed across videos
+(`run_videos_shared`), with the spans gathered from the staged uint8
+buffer on the device. Windows then see their real temporal context at
+their edges where the per-window forward sees zero padding
+(`PARITY.md` "Known deviations"), so this mode is held against the JAX
+package's shared path, not against the per-window one.
 Output JSON matches test.py:254-256.
 """
 
@@ -163,6 +173,52 @@ def stack_windows_u8(data: np.ndarray, offsets: Sequence[int],
     return out, valid
 
 
+def snapped_offsets(sample_count: int, clip_length: int, stride: int
+                    ) -> List[int]:
+    """`window_offsets` with the irregular tail offset snapped up to a
+    multiple of 8, so that its feature slices stay on the stride-4 and
+    stride-8 grids of its span; the overhang reads the zero pad, as a
+    zero-padded tail window does."""
+    return [o if o % 8 == 0 else ((o + 7) // 8) * 8
+            for o in window_offsets(sample_count, clip_length, stride)]
+
+
+def span_plan(offsets: Sequence[int], k: int
+              ) -> Tuple[np.ndarray, np.ndarray, List[int]]:
+    """Groups of k consecutive windows: (bases (G,) the first window's
+    offset, local (G, k) each window's offset in its span, counts (G,)
+    the real windows per group). A short tail group repeats its last
+    window; the repeats are dropped after decode."""
+    n = len(offsets)
+    n_groups = -(-n // k)
+    bases = np.zeros((n_groups,), np.int64)
+    local = np.zeros((n_groups, k), np.int64)
+    for g in range(n_groups):
+        grp = np.asarray(offsets[g * k:(g + 1) * k], np.int64)
+        bases[g] = grp[0]
+        local[g, :len(grp)] = grp - grp[0]
+        local[g, len(grp):] = grp[-1] - grp[0]
+    counts = [k] * (n_groups - 1) + [n - (n_groups - 1) * k]
+    return bases, local, counts
+
+
+def window_features(feats: Dict[str, torch.Tensor], local: torch.Tensor,
+                    clip_length: int) -> Dict[str, torch.Tensor]:
+    """Each window's slice of its span's backbone features: Mixed_4f
+    (b, C, span / 4, h, w) from step lo // 4 and Mixed_5c from lo // 8,
+    for the (b, k) span-local offsets lo; returns the (b * k) windows'
+    features, span-major, gathered on the features' device."""
+    out = {}
+    for key, stride in (('Mixed_4f', 4), ('Mixed_5c', 8)):
+        f = feats[key].transpose(1, 2)                  # (b, t, C, h, w)
+        rows = (local // stride)[..., None] + torch.arange(
+            clip_length // stride, device=f.device)     # (b, k, w)
+        g = f[torch.arange(f.shape[0], device=f.device)[:, None, None],
+              rows]                                     # (b, k, w, C, h, w)
+        out[key] = g.flatten(0, 1).transpose(1, 2)
+    return out
+
+
 def _cat_decoded(parts: Sequence[DecodedWindows]) -> DecodedWindows:
     def cat(field):
         xs = [getattr(p, field) for p in parts]
@@ -212,16 +268,25 @@ class InferencePipeline:
     device_ingest=True (default) gathers windows from the raw frames on
     the device, False stages them on the host. n_candidates bounds the
     per-class device preselect (2048, the THUMOS CLI's default).
+    use_gcpl negates the class outputs before decode (GCPL's scores are
+    negative distances). shared_backbone=True runs one backbone pass per
+    span of `shared_group` windows, at most `shared_max_groups` spans per
+    forward (the JAX package's values).
     """
+
+    shared_group = 4
+    shared_max_groups = 48
 
     def __init__(self, model: torch.nn.Module, clip_length: int = 256,
                  stride: int = 128, crop_size: int = 96,
                  conf_thresh: float = 0.01, top_k: int = 5000,
                  nms_sigma: float = 0.5, use_edl: bool = False,
-                 os_head: bool = False, evidence: str = 'exp',
+                 os_head: bool = False, use_gcpl: bool = False,
+                 evidence: str = 'exp',
                  flow_model: Optional[torch.nn.Module] = None,
                  device_nms: bool = False, device_post: bool = True,
                  n_candidates: int = 2048, device_ingest: bool = True,
+                 shared_backbone: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -235,14 +300,23 @@ class InferencePipeline:
         self.nms_sigma = nms_sigma
         self.use_edl = use_edl
         self.os_head = os_head
+        self.use_gcpl = use_gcpl
         self.evidence = evidence
         self.num_classes = model.head_classes
         self.device_nms = device_nms
         self.device_post = device_post
         self.n_candidates = n_candidates
         self.device_ingest = device_ingest
+        self.shared_backbone = shared_backbone
 
     # ------------------------------------------------------------ forward
+
+    def _decode(self, out: Dict[str, Any]) -> DecodedWindows:
+        return decode_windows(
+            out, self.clip_length, use_edl=self.use_edl,
+            os_head=self.os_head,
+            score_func='dirichlet' if self.use_edl else 'softmax',
+            evidence=self.evidence, negate_conf=self.use_gcpl)
 
     def forward_decode(self, clips: torch.Tensor,
                        flow_clips: Optional[torch.Tensor] = None
@@ -253,11 +327,34 @@ class InferencePipeline:
             out = self.model(clips)
             if flow_clips is not None:
                 out = fuse_streams(out, self.flow_model(flow_clips))
-            return decode_windows(
-                out, self.clip_length, use_edl=self.use_edl,
-                os_head=self.os_head,
-                score_func='dirichlet' if self.use_edl else 'softmax',
-                evidence=self.evidence)
+            return self._decode(out)
+
+    @property
+    def span(self) -> int:
+        """Frames of a shared-backbone span: k windows at the stride,
+        + 8 for the tail offset snapped up to a multiple of 8."""
+        return self.stride * (self.shared_group - 1) + self.clip_length + 8
+
+    def span_decode(self, bufs: Sequence[torch.Tensor], bases: torch.Tensor,
+                    local: torch.Tensor,
+                    frames_valid: Union[int, torch.Tensor]
+                    ) -> DecodedWindows:
+        """Shared-backbone forward + decode of b spans: each span is
+        gathered from the staged uint8 buffer(s) (one per stream, with
+        the same geometry) at `bases` (b,), frames >= frames_valid (a
+        scalar, or (b,) for spans of several videos) zeroed, through the
+        backbone once; each window's features are sliced from its span at
+        `local` (b, k) and run through the pyramid and heads. Returns the
+        decode of the b * k windows, span-major."""
+        outs = []
+        with torch.inference_mode():
+            for model, buf in zip((self.model, self.flow_model), bufs):
+                feats = model.backbone_features(device_windows(
+                    buf, bases, frames_valid, self.span))
+                outs.append(model.detect_from_features(
+                    window_features(feats, local, self.clip_length)))
+            out = outs[0] if len(outs) == 1 else fuse_streams(*outs)
+            return self._decode(out)
 
     def _fusion(self, flow_data) -> bool:
         """Whether a video runs fused; a fusion pipeline needs its flow
@@ -319,10 +416,53 @@ class InferencePipeline:
                   max_batch: int = 32) -> List[Dict[str, Any]]:
         """data: (T, H, W, C) uint8 full video (flow_data its (T', H, W, 2)
         flow frames for fusion). Returns the per-video proposal list
-        (label idx, score, segment seconds, uncertainty, actionness)."""
+        (label idx, score, segment seconds, uncertainty, actionness).
+        With shared_backbone the windows run in spans
+        (`_run_video_shared`)."""
+        if self.shared_backbone:
+            return self._run_video_shared(data, sample_count, sample_fps,
+                                          flow_data)
         dec, offsets = self.decode_video(data, sample_count, max_batch,
                                          flow_data)
         return self._post(dec, offsets, sample_fps)
+
+    def _shared_streams(self, data: np.ndarray,
+                        flow_data: Optional[np.ndarray], name: str = ''
+                        ) -> List[np.ndarray]:
+        """The cropped uint8 frames of a video's streams for the shared
+        path; the flow stream is cut to the RGB length and shares its
+        frames-valid, as in the JAX package."""
+        fusion = self._fusion(flow_data)
+        _require_u8(data, f'frames{name}')
+        streams = [transforms.center_crop(data, self.crop_size)]
+        if fusion:
+            _require_u8(flow_data, f'flow frames{name}')
+            streams.append(transforms.center_crop(
+                flow_data, self.crop_size)[:len(data)])
+        return streams
+
+    def _run_video_shared(self, data: np.ndarray, sample_count: int,
+                          sample_fps: float,
+                          flow_data: Optional[np.ndarray] = None
+                          ) -> List[Dict[str, Any]]:
+        """run_video with a shared backbone: k consecutive windows share
+        one span; up to `shared_max_groups` spans per forward
+        (`opental_tpu/infer/pipeline.py:1116`)."""
+        streams = self._shared_streams(data, flow_data)
+        offsets = snapped_offsets(sample_count, self.clip_length,
+                                  self.stride)
+        bases, local, _ = span_plan(offsets, self.shared_group)
+        t = len(data)
+        bufs = [stage_frames(s, pad_to=max(t, int(bases[-1]) + self.span),
+                             device=self.device) for s in streams]
+        frames_valid = min(t, sample_count)
+        bases_d, local_d = self._to_device(bases), self._to_device(local)
+        n, step = len(offsets), self.shared_max_groups
+        parts = [self.span_decode(bufs, bases_d[i:i + step],
+                                  local_d[i:i + step], frames_valid)
+                 for i in range(0, len(bases), step)]
+        return self._post(_slice_decoded(_cat_decoded(parts), 0, n),
+                          offsets, sample_fps)
 
     def _post(self, dec: DecodedWindows, offsets: Sequence[int],
               sample_fps: float) -> List[Dict[str, Any]]:
@@ -356,10 +496,15 @@ class InferencePipeline:
 
         videos: iterable of (name, data, sample_count, sample_fps), with
         the flow frames as a fifth item for fusion, consumed lazily.
-        Returns {name: proposals}. With device ingest the videos' raw
-        frames pack into device frame buffers (`run_videos_ingest`);
-        otherwise uint8 windows are cut and packed on the host, as below.
+        Returns {name: proposals}. With shared_backbone the spans pack
+        across videos (`run_videos_shared`); with device ingest the
+        videos' raw frames pack into device frame buffers
+        (`run_videos_ingest`); otherwise uint8 windows are cut and packed
+        on the host, as below.
         """
+        if self.shared_backbone:
+            return self.run_videos_shared(videos,
+                                          frames_capacity=frames_capacity)
         if self.device_ingest:
             return self.run_videos_ingest(videos, max_batch=max_batch,
                                           frames_capacity=frames_capacity)
@@ -571,6 +716,78 @@ class InferencePipeline:
                 for vid in vids:
                     self._finish_packed(vid, results)
                 del plan
+        return results
+
+    def run_videos_shared(self, videos, frames_capacity: int = 32768
+                          ) -> Dict[str, List[Dict[str, Any]]]:
+        """Packed shared-backbone inference
+        (`opental_tpu/infer/pipeline.py:873-1016`): the spans of
+        consecutive videos fill forwards of `shared_max_groups` spans over
+        one staged uint8 buffer per flush of up to `frames_capacity`
+        frames (more for one longer video). Each video starts at a
+        multiple of 8 and takes a region of max(its last span's end, its
+        frame count) frames, so every span lies in the buffer; each span
+        carries its own frames-valid (its video's end), so a span reading
+        into the next video's region zeroes those frames, as per-video
+        zero padding. Decoded rows stay on the device until their video
+        is post-processed after its flush.
+
+        videos: iterable of (name, data, sample_count, sample_fps), with
+        the flow frames fifth for fusion, consumed lazily. Returns
+        {name: proposals}.
+        """
+        fusion = self.flow_model is not None
+        k, span = self.shared_group, self.span
+        results: Dict[str, List[Dict[str, Any]]] = {}
+        staged: List[Dict[str, Any]] = []
+        cursor = 0
+
+        def flush():
+            bufs = []
+            for j in range(len(staged[0]['streams'])):
+                shape = staged[0]['streams'][j].shape[1:]
+                host = np.zeros((cursor,) + shape, np.uint8)
+                for v in staged:
+                    frames = v['streams'][j]
+                    host[v['start']:v['start'] + len(frames)] = frames
+                bufs.append(stage_frames(host, device=self.device))
+            spans = [(v, c) for v in staged for c in v['counts']]
+            bases = self._to_device(np.concatenate(
+                [v['bases'] for v in staged]))
+            local = self._to_device(np.concatenate(
+                [v['local'] for v in staged]))
+            fv = self._to_device(np.concatenate([v['fv'] for v in staged]))
+            step = self.shared_max_groups
+            for i in range(0, len(spans), step):
+                dec = self.span_decode(bufs, bases[i:i + step],
+                                       local[i:i + step], fv[i:i + step])
+                for j, (vid, count) in enumerate(spans[i:i + step]):
+                    vid['got'].append(_slice_decoded(dec, j * k,
+                                                     j * k + count))
+            for v in staged:
+                self._finish_packed(v, results)
+
+        for item in videos:
+            name, data, sample_count, sample_fps = item[:4]
+            streams = self._shared_streams(
+                data, item[4] if fusion else None, f' ({name})')
+            offsets = snapped_offsets(sample_count, self.clip_length,
+                                      self.stride)
+            bases, local, counts = span_plan(offsets, k)
+            t = len(data)
+            need = max(int(bases[-1]) + span, t)
+            start = -(-cursor // 8) * 8
+            if staged and start + need > frames_capacity:
+                flush()
+                staged, start = [], 0
+            staged.append(_new_video(
+                name, offsets, sample_fps, streams=streams, start=start,
+                bases=start + bases, local=local, counts=counts,
+                fv=np.full((len(bases),), start + min(t, sample_count),
+                           np.int64)))
+            cursor = start + need
+        if staged:
+            flush()
         return results
 
     # ---------------------------------------------------- post-processing

@@ -1,8 +1,9 @@
-"""Focal and positive-unlabeled actionness losses (masked, fixed shape).
+"""Focal, positive-unlabeled actionness and reciprocal-point losses
+(masked, fixed shape).
 
-Counterpart of `opental_tpu/losses/cls.py:19-89` (reference FocalLoss_Ori
-and ActionnessLoss, AFSD/thumos14/cls_loss.py:6-78, 288-339). The RPL
-loss waits with RPLHead.
+Counterpart of `opental_tpu/losses/cls.py` (reference FocalLoss_Ori,
+ActionnessLoss and RPLoss / GCPLoss, AFSD/thumos14/cls_loss.py:6-78,
+288-378).
 """
 
 from __future__ import annotations
@@ -81,3 +82,45 @@ def actionness_loss(logits: torch.Tensor, labels: torch.Tensor,
 
     count = torch.where(use_topm, num_pos + top_m, num_pos + num_neg)
     return loss_bce + rank_weight * loss_rank, count
+
+
+def _masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          valid: torch.Tensor, mean: bool) -> torch.Tensor:
+    nll = -torch.log_softmax(logits, dim=-1).gather(
+        1, labels[:, None].long())[:, 0]
+    validf = valid.to(nll.dtype)
+    total = (nll * validf).sum()
+    if mean:
+        return total / validf.sum().clamp_min(1.0)
+    return total
+
+
+def rpl_loss(dist: torch.Tensor, target: torch.Tensor, valid: torch.Tensor,
+             feats: torch.Tensor, centers: torch.Tensor,
+             radius: torch.Tensor, temperature: float = 1.0,
+             weight_pl: float = 0.1, gcpl: bool = False,
+             size_average: bool = False, reduction_mean: bool = False
+             ) -> torch.Tensor:
+    """Reciprocal-point (RPL) or GCPL loss (cls_loss.py:355-378): cross
+    entropy over the distances (negated for GCPL) plus weight_pl x a
+    center term. dist (N, K) from RPLHead; target (N,) int; valid (N,)
+    bool; feats (N, D) the head inputs; centers (K, D); radius the
+    learnable scalar (RPL only)."""
+    mean = size_average or reduction_mean
+    center_batch = centers[target.long()]                  # (N, D)
+    validf = valid.float()
+    if gcpl:
+        loss = _masked_cross_entropy(-dist / temperature, target, valid,
+                                     mean)
+        sq = ((feats - center_batch) ** 2).sum(dim=1) / feats.shape[1]
+        # the reference's default-mean F.mse_loss over all elements / 2
+        loss_r = (sq * validf).sum() / validf.sum().clamp_min(1.0) / 2.0
+        return loss + weight_pl * loss_r
+    loss = _masked_cross_entropy(dist / temperature, target, valid, mean)
+    dis = ((feats - center_batch) ** 2).mean(dim=1)         # (N,)
+    se = (dis - radius) ** 2
+    if mean:
+        loss_r = (se * validf).sum() / validf.sum().clamp_min(1.0)
+    else:
+        loss_r = (se * validf).sum()
+    return loss + weight_pl * loss_r

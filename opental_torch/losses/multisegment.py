@@ -4,8 +4,8 @@ Counterpart of `opental_tpu/losses/multisegment.py:26-254` (reference
 MultiSegmentLoss, AFSD/thumos14/multisegment_loss.py:70-259): matching is
 a fixed-shape (B, P, N_max) computation over padded GT tensors, and each
 "gather the positives" is a masked sum, with the reference's
-normalization N = max(#pos, 1). The RPL classification type waits with
-RPLHead.
+normalization N = max(#pos, 1). The classification term is focal, EDL
+or RPL / GCPL (`cls_type`).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from opental_torch.losses.cls import (actionness_loss, bce_with_logits,
-                                      focal_loss)
+                                      focal_loss, rpl_loss)
 from opental_torch.losses.edl import (EDLConfig, EDLState, evidence_loss,
                                       iou_calibration)
 
@@ -27,11 +27,14 @@ class LossConfig(NamedTuple):
     num_classes: int              # head classes (no background if os)
     clip_length: int = 256
     piou: float = 0.5             # refined-stage IoU threshold
-    cls_type: str = 'edl'         # 'focal' | 'edl'
+    cls_type: str = 'edl'         # 'focal' | 'edl' | 'rpl'
     edl: Optional[EDLConfig] = None
     os_head: bool = False
     act_margin: float = 1.0
     act_weight: float = 0.1       # rank-loss weight inside actionness
+    rpl_weight_pl: float = 0.1
+    rpl_temperature: float = 1.0
+    rpl_gcpl: bool = False
     focal_alpha: float = 0.25
     size_average: bool = False
     variant: str = 'thumos'       # 'thumos' | 'anet' matching/normalization
@@ -146,7 +149,7 @@ def multisegment_loss(cfg: LossConfig, out: Dict[str, Any],
             return (flat - 1).clamp_min(0), flat > 0
         return flat, torch.ones_like(flat, dtype=torch.bool)
 
-    def cls_term(logits_flat, targets, valid, state):
+    def cls_term(logits_flat, targets, valid, state, stage):
         if cfg.cls_type == 'focal':
             return focal_loss(torch.softmax(logits_flat, dim=1), targets,
                               valid, k, alpha=cfg.focal_alpha,
@@ -154,14 +157,26 @@ def multisegment_loss(cfg: LossConfig, out: Dict[str, Any],
         if cfg.cls_type == 'edl':
             return evidence_loss(cfg.edl, logits_flat, targets, valid,
                                  state, epoch)
-        raise NotImplementedError(f'cls_type {cfg.cls_type!r} is not '
-                                  'ported yet')
+        if cfg.cls_type == 'rpl':
+            # the refined stage takes the mean (reduction_mean), as the
+            # JAX package's (multisegment.py:199-206)
+            feats = out[stage + 'ctr_feat']
+            return rpl_loss(logits_flat, targets, valid,
+                            feats.reshape(-1, feats.shape[-1]),
+                            out[stage + 'cls_ctr'], out['rpl_radius'][0],
+                            temperature=cfg.rpl_temperature,
+                            weight_pl=cfg.rpl_weight_pl, gcpl=cfg.rpl_gcpl,
+                            size_average=cfg.size_average,
+                            reduction_mean=stage == 'prop_'), state
+        raise ValueError(cfg.cls_type)
 
     conf_flat = conf.reshape(-1, k)
     prop_conf_flat = prop_conf.reshape(-1, k)
-    loss_c, state = cls_term(conf_flat, *stage_labels(m.conf_t), edl_state)
+    loss_c, state = cls_term(conf_flat, *stage_labels(m.conf_t), edl_state,
+                             '')
     loss_prop_c, state = cls_term(prop_conf_flat,
-                                  *stage_labels(m.prop_conf_t), state)
+                                  *stage_labels(m.prop_conf_t), state,
+                                  'prop_')
 
     losses = {
         'loss_l': loss_l / n_pos,

@@ -5,7 +5,11 @@ AFSD/thumos14/BDNet.py:435-561. Input clips are (B, C, T, H, W) in
 [-1, 1] (the reference's layout); the out_dict has the JAX package's keys
 and layouts. Top-level names ('backbone._model', 'coarse_pyramid_detection')
 follow the reference state_dict. `ssl_forward` is the SSL triplet pass of
-training (bdnet.py:166-192).
+training (bdnet.py:166-192). `backbone_features` and
+`detect_from_features` split the forward at the backbone, as the
+shared-backbone inference runs it; `get_feat` adds the class heads'
+inputs (`conf_feat`, `prop_conf_feat`) that OpenMax reads
+(bdnet.py:100-123).
 """
 
 from __future__ import annotations
@@ -76,6 +80,8 @@ class BDNet(nn.Module):
     freeze modes; `dropout` acts on the class heads' inputs in train mode.
     `stem_pallas` runs the I3D stem through the stem-pack kernel
     (`model.stem_pallas`; the same weights and math either way).
+    `use_rpl` gives the THUMOS pyramid reciprocal-point class heads
+    (`model.use_rpl`, the RPL / GCPL baselines).
     """
 
     def __init__(self, in_channels: int = 3, num_classes: int = 16,
@@ -84,11 +90,15 @@ class BDNet(nn.Module):
                  crop_size: int = 96, freeze_bn: bool = True,
                  freeze_bn_affine: bool = True, dropout: float = 0.0,
                  stem_pallas: bool = False, arch: str = 'thumos',
+                 use_rpl: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if arch not in ('thumos', 'anet'):
             raise ValueError(f'arch {arch!r}')
+        if use_rpl and arch != 'thumos':
+            raise ValueError('use_rpl needs the THUMOS pyramid')
         self.arch = arch
+        self.use_rpl = use_rpl
         self.in_channels = in_channels
         self.num_classes = num_classes
         self.os_head = os_head
@@ -110,23 +120,36 @@ class BDNet(nn.Module):
             self.coarse_pyramid_detection = CoarsePyramid(
                 num_classes=self.head_classes, frame_num=frame_num,
                 crop_size=crop_size, os_head=os_head, dropout=dropout,
-                dtype=dtype)
+                use_rpl=use_rpl, dtype=dtype)
 
     @property
     def head_classes(self) -> int:
         # os_head drops the background channel (thumos14/BDNet.py:440)
         return self.num_classes - 1 if self.os_head else self.num_classes
 
-    def forward(self, x: torch.Tensor) -> Dict[str, Any]:
-        return self.detect_from_features(self.backbone(x))
+    def forward(self, x: torch.Tensor, get_feat: bool = False
+                ) -> Dict[str, Any]:
+        return self.detect_from_features(self.backbone(x),
+                                         get_feat=get_feat)
 
-    def detect_from_features(self, feat_dict: Dict[str, torch.Tensor]
-                             ) -> Dict[str, Any]:
-        out = self.coarse_pyramid_detection(feat_dict)
+    def backbone_features(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The backbone alone: {'Mixed_4f', 'Mixed_5c'} of x. The
+        shared-backbone inference runs it once over a span of several
+        overlapping windows."""
+        return self.backbone(x)
+
+    def detect_from_features(self, feat_dict: Dict[str, torch.Tensor],
+                             get_feat: bool = False) -> Dict[str, Any]:
+        """The pyramid and heads on backbone features: the rest of the
+        forward, with the same out_dict."""
+        out = self.coarse_pyramid_detection(feat_dict, get_feat=get_feat)
         if self.use_edl:
             out['unct'] = dirichlet_uncertainty(out['conf'], self.evidence)
             out['prop_unct'] = dirichlet_uncertainty(out['prop_conf'],
                                                      self.evidence)
+        if get_feat:
+            out['conf_feat'] = out['ctr_feat']
+            out['prop_conf_feat'] = out['prop_ctr_feat']
         return out
 
     def ssl_forward(self, x: torch.Tensor, proposals: torch.Tensor

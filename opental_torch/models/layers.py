@@ -285,6 +285,32 @@ class ScaleExp(nn.Module):
         return torch.exp(x * self.scale.to(x.dtype))
 
 
+class RPLHead(nn.Module):
+    """Reciprocal-point distance head (reference layers.py:314-351): the
+    squared l2 distance of each feature to every learned class center,
+    over the feature width, averaged over a class's centers. Input
+    (B, t, D) channels-last (the JAX package's layout); output (B, t, K),
+    float32. The centers are (K * num_centers, D), key
+    `conf_head.centers` / `prop_conf_head.centers` as the reference."""
+
+    def __init__(self, num_classes: int, feat_dim: int,
+                 num_centers: int = 1):
+        super().__init__()
+        self.num_classes, self.num_centers = num_classes, num_centers
+        self.centers = nn.Parameter(
+            0.1 * torch.randn(num_classes * num_centers, feat_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        c = self.centers
+        f2 = (x * x).sum(dim=-1, keepdim=True)                # (B, t, 1)
+        c2 = (c * c).sum(dim=-1)                              # (KC,)
+        cross = torch.matmul(x, c.t())                        # (B, t, KC)
+        dist = (f2 - 2.0 * cross + c2) / float(x.shape[-1])
+        return dist.reshape(x.shape[0], x.shape[1], self.num_classes,
+                            self.num_centers).mean(dim=-1)
+
+
 def interpolate_nearest_1d(x: torch.Tensor, out_len: int) -> torch.Tensor:
     """Nearest resize of the last axis of (B, C, T), idx = floor(i*T/out)
     (F.interpolate(mode='nearest')'s rule)."""

@@ -15,8 +15,12 @@ features of all levels and both branches packed into one segmented
 call); then per level the refinement and proposal heads.
 `forward(..., ssl=True)` is the SSL pass: it returns {'trip': [frame-level
 feature, loc lr feature, conf lr feature]} right after level 0's branch
-features, before any pool. The RPL and transformer branches are not
-ported yet.
+features, before any pool. `use_rpl` makes both class heads `RPLHead`s
+and adds the learnable RPL radius (`rpl_radius`, which the reference
+keeps in its loss module); `get_feat` (and `use_rpl`) adds the class
+heads' inputs, `ctr_feat` and `prop_ctr_feat` (B, P, 512), to the
+out_dict (`opental_tpu/models/pyramid.py:218-233, 262-303`). The
+transformer head is not ported.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 from torch import nn
 
 from opental_torch.models.layers import (ConvGNReLU1D, GroupNorm32,
-                                         ScaleExp, Unit1D, Unit3D,
+                                         RPLHead, ScaleExp, Unit1D, Unit3D,
                                          interpolate_nearest_1d)
 from opental_torch.ops.boundary_pool import boundary_max_pool_segmented
 
@@ -158,12 +162,13 @@ class CoarsePyramid(nn.Module):
 
     def __init__(self, num_classes: int, frame_num: int = 256,
                  crop_size: int = 96, os_head: bool = False,
-                 dropout: float = 0.0,
+                 dropout: float = 0.0, use_rpl: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         oc = CONV_CHANNELS
         self.frame_num = frame_num
         self.os_head = os_head
+        self.use_rpl = use_rpl
         self.pyramids = self._make_pyramids(crop_size, dtype)
         # frame-level feature stack: one flat Sequential as the reference
         # (deconv.{0,3,6} convs, deconv.{1,4,7} GroupNorms)
@@ -173,8 +178,9 @@ class CoarsePyramid(nn.Module):
         self.loc_tower = _tower(dtype=dtype)
         self.conf_tower = _tower(dtype=dtype)
         self.loc_head = Unit1D(oc, 2, 3, activation=False, dtype=dtype)
-        self.conf_head = Unit1D(oc, num_classes, 3, activation=False,
-                                dtype=dtype)
+        self.conf_head = (RPLHead(num_classes, oc) if use_rpl else
+                          Unit1D(oc, num_classes, 3, activation=False,
+                                 dtype=dtype))
         if os_head:
             self.actionness_head = Unit1D(oc, 1, 3, activation=False,
                                           dtype=dtype)
@@ -183,14 +189,17 @@ class CoarsePyramid(nn.Module):
         self.loc_proposal_branch = ProposalBranch(oc, 512, dtype=dtype)
         self.conf_proposal_branch = ProposalBranch(oc, 512, dtype=dtype)
         self.prop_loc_head = Unit1D(oc, 2, 1, activation=False, dtype=dtype)
-        self.prop_conf_head = Unit1D(oc, num_classes, 1, activation=False,
-                                     dtype=dtype)
+        self.prop_conf_head = (RPLHead(num_classes, oc) if use_rpl else
+                               Unit1D(oc, num_classes, 1, activation=False,
+                                      dtype=dtype))
         self.center_head = Unit1D(oc, 1, 3, activation=False, dtype=dtype)
         self.loc_heads = nn.ModuleList([ScaleExp()
                                         for _ in range(LAYER_NUM)])
         # on the class heads' inputs only, as the JAX package
         # (pyramid.py:213-231); the identity in eval mode
         self.dropout = nn.Dropout(dropout) if dropout > 0 else None
+        if use_rpl:
+            self.rpl_radius = nn.Parameter(torch.zeros(1))
         self.register_buffer('priors', torch.from_numpy(
             self.make_level_priors(frame_num)), persistent=False)
 
@@ -228,8 +237,22 @@ class CoarsePyramid(nn.Module):
     def _drop(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.dropout is None else self.dropout(x)
 
-    def forward(self, feat_dict: Dict[str, torch.Tensor], ssl: bool = False
-                ) -> Dict[str, Any]:
+    def _class_head(self, head: nn.Module, feat: torch.Tensor,
+                    taps: Optional[List[torch.Tensor]]) -> torch.Tensor:
+        """A class head on (B, 512, t) after dropout -> (B, t, K); the
+        head's channels-last input goes to `taps` when it is kept."""
+        x = self._drop(feat)
+        if not self.use_rpl:
+            if taps is not None:
+                taps.append(_channels_last(x))
+            return _channels_last(head(x))
+        x = _channels_last(x)
+        if taps is not None:
+            taps.append(x)
+        return head(x)
+
+    def forward(self, feat_dict: Dict[str, torch.Tensor], ssl: bool = False,
+                get_feat: bool = False) -> Dict[str, Any]:
         feats = self.level_features(feat_dict)
         frame_level = self.deconv(interpolate_nearest_1d(feats[0],
                                                          self.frame_num))
@@ -237,6 +260,10 @@ class CoarsePyramid(nn.Module):
         half = CONV_CHANNELS // 2
         out: Dict[str, Any] = {'start': frame_tc[..., :half],
                                'end': frame_tc[..., half:]}
+
+        keep = self.use_rpl or get_feat
+        ctr_feats = [] if keep else None
+        prop_ctr_feats = [] if keep else None
 
         # (A) per level: towers, heads, pooling windows, branch features
         locs, confs, acts = [], [], []
@@ -249,8 +276,8 @@ class CoarsePyramid(nn.Module):
                 loc_out = loc_out * self.loc_strides[i]
             loc_out = _channels_last(loc_out)                 # (B, t, 2)
             locs.append(loc_out)
-            confs.append(_channels_last(self.conf_head(
-                self._drop(conf_feat))))
+            confs.append(self._class_head(self.conf_head, conf_feat,
+                                          ctr_feats))
             if self.os_head:
                 acts.append(_channels_last(self.actionness_head(conf_feat)))
 
@@ -302,8 +329,8 @@ class CoarsePyramid(nn.Module):
                 conf_short, prop_all[:, k_all + k0:k_all + k0 + t], roi)
             k0 += t
             prop_locs.append(_channels_last(self.prop_loc_head(loc_prop)))
-            prop_confs.append(_channels_last(self.prop_conf_head(
-                self._drop(conf_prop))))
+            prop_confs.append(self._class_head(self.prop_conf_head,
+                                               conf_prop, prop_ctr_feats))
             if self.os_head:
                 prop_acts.append(_channels_last(
                     self.prop_actionness_head(conf_prop)))
@@ -319,4 +346,13 @@ class CoarsePyramid(nn.Module):
             'act': cat(acts) if self.os_head else None,
             'prop_act': cat(prop_acts) if self.os_head else None,
         })
+        if keep:
+            out['ctr_feat'] = cat(ctr_feats)
+            out['prop_ctr_feat'] = cat(prop_ctr_feats)
+        if self.use_rpl:
+            # the reciprocal points and the radius of the RPL loss
+            # (thumos14/BDNet.py:528-532)
+            out['cls_ctr'] = self.conf_head.centers
+            out['prop_cls_ctr'] = self.prop_conf_head.centers
+            out['rpl_radius'] = self.rpl_radius
         return out

@@ -1,1 +1,2 @@
-"""Open-set tools: the OOD threshold calibration."""
+"""Open-set tools: the OOD threshold calibration, OpenMax and its libmr
+binding."""

@@ -5,8 +5,10 @@ Counterpart of `opental_tpu/tools/test.py` (reference
 AFSD/thumos14/test.py:203-294): slides windows over every test video,
 runs the (optionally RGB + flow fused) model and writes the detection
 JSON, in the JAX CLI's modes (`testing.packed`, `testing.device_ingest`,
-`testing.device_nms`; `testing.shared_backbone` raises). Runs on the
-card unless `--device cpu` (or device='cpu') is asked for.
+`testing.device_nms`, `testing.shared_backbone`). A GCPL config
+(`training.rpl_config.gcpl` with `model.use_rpl`) decodes negated
+distances. Runs on the card unless `--device cpu` (or device='cpu') is
+asked for.
 """
 
 from __future__ import annotations
@@ -35,7 +37,10 @@ def load_variables(model: torch.nn.Module, checkpoint_path: str
                    ) -> torch.nn.Module:
     """Load a reference `checkpoint-*.ckpt`, a port state_dict saved with
     torch.save, or the model weights of a port training checkpoint
-    (`train/checkpoint.py`) into `model`, strictly."""
+    (`train/checkpoint.py`) into `model`, strictly. The RPL radius, which
+    a reference checkpoint lacks (the reference keeps it in its loss
+    module) and inference does not read, keeps the model's value when
+    the file has none."""
     path = resolve_checkpoint(checkpoint_path)
     if os.path.isdir(path):
         raise ValueError(
@@ -49,6 +54,10 @@ def load_variables(model: torch.nn.Module, checkpoint_path: str
         sd = sd['model']
     sd = {k: v for k, v in sd.items()
           if not k.endswith('num_batches_tracked')}
+    radius = 'coarse_pyramid_detection.rpl_radius'
+    own = model.state_dict()
+    if radius in own and radius not in sd:
+        sd[radius] = own[radius]
     model.load_state_dict(sd, strict=True)
     return model
 
@@ -70,12 +79,11 @@ def build_pipeline(cfg: Config,
     the test video infos and the class names."""
     dev = resolve_device(device)
     te = cfg.testing
-    if te.get('shared_backbone', False):
-        raise NotImplementedError('testing.shared_backbone is not ported '
-                                  'yet')
     clip_length = cfg.get_path('dataset.testing.clip_length', 256)
     crop_size = cfg.get_path('dataset.testing.crop_size', 96)
     flags = factory.model_flags(cfg)
+    use_gcpl = bool(flags['use_rpl']) and bool(
+        cfg.get_path('training.rpl_config.gcpl', False))
     dtype = inference_dtype(cfg)
     model = factory.build_model(cfg, frame_num=clip_length,
                                 crop_size=crop_size, dtype=dtype)
@@ -92,12 +100,16 @@ def build_pipeline(cfg: Config,
         crop_size=crop_size, conf_thresh=te.get('conf_thresh', 0.01),
         top_k=te.get('top_k', 5000), nms_sigma=te.get('nms_sigma', 0.5),
         use_edl=flags['use_edl'], os_head=flags['os_head'],
-        evidence=flags['evidence'], flow_model=flow_model,
+        use_gcpl=use_gcpl, evidence=flags['evidence'],
+        flow_model=flow_model,
         # testing.device_nms (default true): the fused device
         # post-processing, as the JAX CLI reads it (tools/test.py:115)
         device_post=te.get('device_nms', True),
         n_candidates=te.get('n_candidates', 2048),
-        device_ingest=te.get('device_ingest', True), device=dev)
+        device_ingest=te.get('device_ingest', True),
+        # testing.shared_backbone (default off): one backbone pass per
+        # span of 4 windows, as the JAX CLI reads it (tools/test.py:130)
+        shared_backbone=te.get('shared_backbone', False), device=dev)
     video_infos = get_video_info(
         cfg.get_path('dataset.testing.video_info_path'))
     _, idx_to_class = get_class_index_map(

@@ -11,6 +11,10 @@ port BDNet's state_dict: the inverse of the JAX package's
   BN scale/bias/mean/var    -> weight/bias/running_mean/running_var
   GN scale/bias             -> weight/bias
 
+The RPL centers map to `conf_head.centers` / `prop_conf_head.centers`
+and the RPL radius, which a reference checkpoint lacks (the reference
+keeps it in its loss module), to `coarse_pyramid_detection.rpl_radius`.
+
 It is strict: a JAX leaf that maps to no port key, or two leaves that
 map to one key, raise here; loading the result with
 `load_state_dict(..., strict=True)` raises for a port parameter or
@@ -77,6 +81,10 @@ def _pyramid_key(rest: Tuple[str, ...]) -> Entry:
         return _block(f'{p}deconv', rest[1:], 3 * j, 3 * j + 1)
     if name in ('loc_proposal_branch', 'conf_proposal_branch'):
         return _block(f'{p}{name}.{rest[1]}', rest[2:])
+    if rest == ('rpl_radius',):
+        return f'{p}rpl_radius', None
+    if rest[1:] == ('centers',):
+        return f'{p}{name}.centers', None
     m = re.fullmatch(r'loc_scale_(\d)', name)
     if m and rest[1:] == ('scale',):
         return f'{p}loc_heads.{m.group(1)}.scale', None

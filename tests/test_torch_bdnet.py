@@ -86,15 +86,20 @@ def test_missing_key_raises(models):
 
 
 def test_extra_key_raises(models):
+    """A JAX leaf with no port counterpart raises (the transformer head
+    is not ported); the RPL radius, ported with the RPL heads, maps to
+    the pyramid's `rpl_radius`."""
     _, v, _, _, _ = models
     params = dict(v['params'])
-    params['pyramid'] = dict(params['pyramid'],
-                             rpl_radius=np.zeros(1, np.float32))
-    with pytest.raises(KeyError, match='rpl_radius'):
+    params['pyramid'] = dict(params['pyramid'], transformer_head={
+        'kernel': np.zeros((2, 2), np.float32)})
+    with pytest.raises(KeyError, match='transformer_head'):
         from_jax_variables({'params': params,
                             'constants': v['constants']})
     with pytest.raises(KeyError):
         map_jax_path(('pyramid', 'transformer_head', 'kernel'))
+    assert map_jax_path(('pyramid', 'rpl_radius')) == (
+        'coarse_pyramid_detection.rpl_radius', None)
 
 
 @pytest.mark.parametrize('evidence', ['relu', 'exp', 'softplus'])

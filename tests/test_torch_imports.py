@@ -186,3 +186,33 @@ def test_anet_modules_are_ported():
     cfg_path = os.path.join(ROOT, 'configs', 'anet_opental.yaml')
     with pytest.raises(RuntimeError, match='CUDA'):
         test_anet.main([cfg_path])
+
+
+OPENSET_CLIS = {
+    'test_openmax': ['configs/thumos14_openmax.yaml'],
+    'test_cross_data': ['configs/thumos14_opental_final.yaml'],
+    'search_param': ['configs/thumos14_opental_final.yaml', '--gt_json',
+                     'no_such_gt.json'],
+}
+
+
+@pytest.mark.parametrize('cli', sorted(OPENSET_CLIS))
+def test_openset_modules_are_ported(cli):
+    """The open-set slice's modules (the OpenMax baseline, the evaluator
+    copies and the tools) are part of the port, and so of the
+    blocked-import check above; each new CLI refuses to run without a
+    card unless the CPU is asked for, before it reads or writes any
+    file."""
+    assert {'opental_torch.openset.libmr', 'opental_torch.openset.openmax',
+            'opental_torch.eval.detection', 'opental_torch.eval.curves',
+            'opental_torch.eval.metrics', 'opental_torch.tools.eval_open',
+            'opental_torch.tools.test_openmax',
+            'opental_torch.tools.test_cross_data',
+            'opental_torch.tools.search_param'} <= set(port_modules())
+    if torch.cuda.is_available():
+        return
+    import importlib
+    mod = importlib.import_module(f'opental_torch.tools.{cli}')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mod.main([os.path.join(ROOT, a) if a.startswith('configs') else a
+                  for a in OPENSET_CLIS[cli]])

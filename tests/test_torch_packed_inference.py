@@ -545,10 +545,13 @@ def test_fusion_needs_flow_frames():
 
 
 def test_shared_backbone_is_refused(dataset):
+    """C1, closed: `testing.shared_backbone` is no longer refused; the
+    CLI builds the shared-backbone pipeline (its results are held
+    against JAX's in `tests/test_torch_shared_backbone.py`)."""
     _, cfg_path, overrides = dataset
-    with pytest.raises(NotImplementedError, match='shared_backbone'):
-        port_test.build_pipeline(load_config(cfg_path, overrides=dict(
-            overrides, **{'testing.shared_backbone': True})), device='cpu')
+    pipe, _, _ = port_test.build_pipeline(load_config(cfg_path, overrides=dict(
+        overrides, **{'testing.shared_backbone': True})), device='cpu')
+    assert pipe.shared_backbone and pipe.flow_model is not None
 
 
 def test_cli_reads_the_packing_keys(dataset, monkeypatch):

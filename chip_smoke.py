@@ -113,6 +113,27 @@ Phases (any failure ends the run with a non-zero exit):
  29. tools.test_cross_data over the phase-6 videos and synthetic
      ActivityNet videos, and tools.search_param over a 2 x 2 grid, its
      cache re-read
+ 30. the fused SSL step (fuse_ssl: one backbone and pyramid pass over the
+     2B batch) vs the sequential step at bs=1 and bs=8, f32, TF32 off:
+     loss terms, gradients, B1 / B2 launches; step ms in turns and peak
+     memory
+ 31. model.remat vs off at bs=8 (f32): loss terms and gradients, the BN
+     running statistics after a freeze_bn: false step, step ms and peak
+     memory; with model.stem_pallas, B3 launched again in the recompute
+ 32. model.transformer (the transformer conf head) at full width: card
+     vs CPU at W=1, kernel path vs plain path at W=32, one bs=1 step
+ 33. tools.export: torch.export of the uint8 forward + decode, saved and
+     loaded, its opental:: custom-op nodes counted (2 B1, 1 B4 with the
+     flag), its time beside the live forward_decode: at W=128 bf16, where
+     the loaded program matches live bf16 at bf16's tolerance, and with
+     model.stem_pallas at W=8 in f32 with TF32 off, where it equals live
+     at 1e-6
+ 34. StreamingSession over the 33000-frame packed video in chunks
+     (max_batch 8): finalize vs run_video per proposal in f32, the
+     largest frames_resident, B1 launches against forwards, windows/s in
+     bf16
+ 35. utils.profiling: PhaseTimer around run_test, a torch.profiler trace
+     file with device time, device_memory_stats
 Phases 8 and 9 run with model.stem_pallas off and on. Then a `kernels`
 JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Weights and data are random, made from
@@ -145,7 +166,7 @@ from opental_torch.config import load_config  # noqa: E402
 from opental_torch.data.thumos import get_class_index_map  # noqa: E402
 from opental_torch.infer import pipeline as pipeline_mod  # noqa: E402
 from opental_torch.infer.pipeline import (InferencePipeline,  # noqa: E402
-                                          window_offsets)
+                                          ingest_windows, window_offsets)
 from opental_torch.losses.edl import EDLState  # noqa: E402
 from opental_torch.models import bdnet as bdnet_mod  # noqa: E402
 from opental_torch.models import pyramid  # noqa: E402
@@ -155,8 +176,10 @@ from opental_torch.ops import (_build, boundary_pool,  # noqa: E402
                                boundary_pool_cuda, stem_pack, stem_pack_cuda)
 from opental_torch.openset import libmr  # noqa: E402
 from opental_torch.openset.openmax import weibull_fitting  # noqa: E402
-from opental_torch.tools import (eval_open, search_param,  # noqa: E402
-                                 test_anet, test_cross_data, test_openmax)
+from opental_torch.infer.streaming import StreamingSession  # noqa: E402
+from opental_torch.tools import (eval_open, export,  # noqa: E402
+                                 search_param, test_anet, test_cross_data,
+                                 test_openmax)
 from opental_torch.tools import threshold as threshold_cli  # noqa: E402
 from opental_torch.tools import train as train_cli  # noqa: E402
 from opental_torch.tools.test import build_pipeline, run_test  # noqa: E402
@@ -169,6 +192,7 @@ from opental_torch.train.step import (TrainState, compute_losses,  # noqa: E402
                                       device_ingest, global_norm,
                                       make_anet_optimizer, make_optimizer,
                                       train_step)
+from opental_torch.utils import profiling  # noqa: E402
 from opental_torch.utils.synthetic import (  # noqa: E402
     make_synthetic_anet_dataset, make_synthetic_dataset)
 
@@ -310,10 +334,11 @@ def random_clips(n: int, seed: int, frames: int = FRAMES) -> torch.Tensor:
     return (u8.float() / 255.0) * 2.0 - 1.0
 
 
-def build_model(state_dict, dtype, device, stem_pallas=False) -> BDNet:
+def build_model(state_dict, dtype, device, stem_pallas=False,
+                transformer=False) -> BDNet:
     m = BDNet(num_classes=CLASSES, os_head=True, use_edl=True,
               evidence='exp', frame_num=FRAMES, crop_size=CROP,
-              stem_pallas=stem_pallas,
+              stem_pallas=stem_pallas, transformer=transformer,
               dtype=None if dtype == torch.float32 else dtype)
     m.load_state_dict(state_dict, strict=True)
     return m.to(device).eval()
@@ -766,7 +791,8 @@ def train_batch(b: int, frame: int, crop: int, seed: int, device):
     return batch
 
 
-def loss_and_grads(model, cfg, batch, epoch: int = 11):
+def loss_and_grads(model, cfg, batch, epoch: int = 11,
+                   fuse_ssl: bool = False):
     """Loss terms and parameter gradients of one train step (no update)."""
     model.train()
     model.zero_grad(set_to_none=True)
@@ -774,7 +800,8 @@ def loss_and_grads(model, cfg, batch, epoch: int = 11):
         'truths'].device)
     cost, terms, _ = compute_losses(model, factory.build_loss_config(cfg),
                                     factory.build_loss_weights(cfg),
-                                    device_ingest(batch), edl, epoch)
+                                    device_ingest(batch), edl, epoch,
+                                    fuse_ssl=fuse_ssl)
     cost.backward()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
              if p.grad is not None}
@@ -3177,6 +3204,523 @@ def phase_cross_search(root, lengths):
             'search_s': (runs[0][0], runs[1][0])}
 
 
+# ------------------------------ the single-device leftovers (30 - 35)
+
+def grads_close(grads_a, grads_b, label: str, rtol: float = 1e-4,
+                atol_rel: float = 1e-4) -> float:
+    """Every gradient of a within rtol (+ atol_rel of its largest
+    element) of b's; returns the worst |diff| / max."""
+    assert set(grads_a) == set(grads_b), label
+    worst = 0.0
+    for n, ga in grads_a.items():
+        gb = grads_b[n]
+        scale = gb.abs().max().item()
+        torch.testing.assert_close(ga, gb, rtol=rtol, atol=atol_rel * scale,
+                                   msg=lambda m: f'{label} grad {n}: {m}')
+        if scale > 0:
+            worst = max(worst, (ga - gb).abs().max().item() / scale)
+    return worst
+
+
+def step_ms_peak(fn, reps: int) -> np.ndarray:
+    """A measure for `in_turns`: (ms per call, peak GiB) of fn() over
+    `reps` timed calls after as many warm ones (every state stays
+    resident, so a peak includes the others' parameters and optimizer
+    moments)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(fn, reps, warmup=reps)
+    return np.array([ms, torch.cuda.max_memory_allocated() / 2**30])
+
+
+def new_state(cfg, model) -> TrainState:
+    return TrainState(model=model, optimizer=make_optimizer(model, 1e-5,
+                                                            1e-3),
+                      edl_state=EDLState.create(
+                          factory.build_loss_config(cfg).edl, 'cuda'))
+
+
+def stepper(cfg, state, batch, **kw):
+    loss_cfg = factory.build_loss_config(cfg)
+    weights = factory.build_loss_weights(cfg)
+    return lambda: train_step(state, loss_cfg, weights, batch, 11, **kw)
+
+
+def phase_fuse_ssl(cfg) -> dict:
+    log('== phase 30: the fused SSL step (fuse_ssl: one backbone and '
+        'pyramid pass over the 2B batch) vs the sequential step, f32')
+    out = {'fwd': 0, 'bwd': 0}
+    model = train_model(cfg, FRAMES, CROP, 'cuda')
+    for bs in (1, 8):
+        batch = train_batch(bs, FRAMES, CROP, 30 + bs, 'cuda')
+        res = {}
+        with tf32_off():
+            for fuse in (False, True):
+                reset_counts()
+                terms, grads = loss_and_grads(model, cfg, batch,
+                                              fuse_ssl=fuse)
+                torch.cuda.synchronize()
+                res[fuse] = (terms, grads, counts()[:2])
+        for fuse in (False, True):
+            assert res[fuse][2] == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), \
+                (bs, fuse, res[fuse][2])
+        out['fwd'] += res[True][2][0]
+        out['bwd'] += res[True][2][1]
+        for k, v in res[False][0].items():
+            torch.testing.assert_close(res[True][0][k], v, rtol=2e-4,
+                                       atol=1e-6, msg=lambda m: f'{k}: {m}')
+        assert res[True][0]['loss_trip'] > 0
+        # the 2B convolutions round differently from the B ones, and a
+        # pool routes each gradient to its window's first argmax, which
+        # such rounding can move between near-tied rows: each gradient
+        # within 1e-3 of its largest element (rounding gives ~5e-5, the
+        # SSL features detached in the fused pass ~1e-1)
+        norms = [global_norm(res[f][1].values()) for f in (True, False)]
+        torch.testing.assert_close(norms[0], norms[1], rtol=1e-4, atol=0)
+        worst = grads_close(res[True][1], res[False][1], f'fused bs={bs}',
+                            atol_rel=1e-3)
+        log(f'bs={bs}, TF32 off: fused == sequential on every loss term '
+            f'(rtol 2e-4, atol 1e-6), the gradient norm ({norms[0]:.6f} vs '
+            f'{norms[1]:.6f}, rtol 1e-4) and each gradient (rtol 1e-4 + '
+            f'1e-3 of its max; worst |diff| / max {worst:.3g}); B1 + B2 '
+            f'launches per step {res[True][2]} fused, {res[False][2]} '
+            f'sequential')
+        del res, batch
+    del model
+    torch.cuda.empty_cache()
+    # step time with PyTorch's defaults, as phase 8
+    states = {f: new_state(cfg, train_model(cfg, FRAMES, CROP, 'cuda'))
+              for f in (False, True)}
+    for bs, reps in ((1, 6), (8, 3)):
+        batch = train_batch(bs, FRAMES, CROP, 5, 'cuda')
+        t = in_turns({f: stepper(cfg, states[f], batch, fuse_ssl=f)
+                      for f in (False, True)}, reps, step_ms_peak)
+        out[bs] = t
+        log(f'bs={bs}: sequential {t[False][0]:.1f} ms, peak '
+            f'{t[False][1]:.2f} GiB; fused {t[True][0]:.1f} ms, peak '
+            f'{t[True][1]:.2f} GiB (both states resident); fused / '
+            f'sequential {t[True][0] / t[False][0]:.3f}; {card_line()}')
+        del batch
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_model(cfg, state_dict, **overrides):
+    m = factory.build_model(load_config(CONFIG, overrides=overrides),
+                            frame_num=FRAMES, crop_size=CROP,
+                            dtype=torch.float32)
+    m.load_state_dict(state_dict, strict=True)
+    return m.to('cuda')
+
+
+def phase_remat(cfg) -> dict:
+    log('== phase 31: model.remat (each backbone block recomputed in the '
+        'backward) vs off, bs=8 f32')
+    out = {'fwd': 0, 'bwd': 0, 'v1': 0}
+    base = train_model(cfg, FRAMES, CROP, 'cuda')
+    sd = base.state_dict()
+    rmt = remat_model(cfg, sd, **{'model.remat': True})
+    batch = train_batch(8, FRAMES, CROP, 31, 'cuda')
+    with tf32_off():
+        terms_a, grads_a = loss_and_grads(base, cfg, batch)
+        reset_counts()
+        terms_b, grads_b = loss_and_grads(rmt, cfg, batch)
+        torch.cuda.synchronize()
+        c = counts()
+    assert c[:2] == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), c
+    out['fwd'] += c[0]
+    out['bwd'] += c[1]
+    exact = all(torch.equal(terms_a[k], terms_b[k]) for k in terms_a)
+    for k in terms_a:
+        torch.testing.assert_close(terms_b[k], terms_a[k], rtol=1e-5,
+                                   atol=1e-6, msg=lambda m: f'{k}: {m}')
+    worst = grads_close(grads_b, grads_a, 'remat', rtol=1e-5,
+                        atol_rel=1e-5)
+    log(f'TF32 off: remat == off on every loss term (bit for bit: {exact}) '
+        f'and gradient (rtol 1e-5 + 1e-5 of its max; worst |diff| / max '
+        f'{worst:.3g}); B1 + B2 launches {c[:2]}')
+    del grads_a, grads_b
+
+    # freeze_bn: false: one step each; the running statistics move once
+    train_bn = {'model.freeze_bn': False}
+    bn_cfg = load_config(CONFIG, overrides=train_bn)
+    pair = {r: new_state(bn_cfg, remat_model(
+        bn_cfg, sd, **dict(train_bn, **{'model.remat': r})))
+        for r in (False, True)}
+    with tf32_off():
+        for r in (False, True):
+            reset_counts()
+            stepper(bn_cfg, pair[r], batch)()
+            torch.cuda.synchronize()
+            if r:
+                out['fwd'] += counts()[0]
+                out['bwd'] += counts()[1]
+    got, want = (pair[r].model.state_dict() for r in (True, False))
+    n, diff = 0, 0.0
+    for k, w in want.items():
+        if k.endswith(('running_mean', 'running_var')):
+            assert not torch.equal(w, sd[k]), k
+            torch.testing.assert_close(got[k], w, rtol=1e-5, atol=1e-6,
+                                       msg=lambda m: f'{k}: {m}')
+            diff = max(diff, (got[k] - w).abs().max().item())
+            n += 1
+    assert n > 100, n
+    log(f'freeze_bn: false, one step each: the {n} running statistics of '
+        f'the remat model equal the plain one\'s (max |diff| {diff:.3g}), '
+        f'each moved once')
+    del pair, bn_cfg
+
+    # step time and peak memory, PyTorch's defaults
+    states = {False: new_state(cfg, base), True: new_state(cfg, rmt)}
+    t = in_turns({r: stepper(cfg, states[r], batch)
+                  for r in (False, True)}, 3, step_ms_peak)
+    out['ms'] = t
+    log(f'bs=8 step: off {t[False][0]:.1f} ms, peak {t[False][1]:.2f} GiB; '
+        f'remat {t[True][0]:.1f} ms, peak {t[True][1]:.2f} GiB (both states '
+        f'resident); {card_line()}')
+    del states, base, rmt
+    torch.cuda.empty_cache()
+    # alone, each state the only one on the card
+    alone = {}
+    for r in (False, True):
+        state = new_state(cfg, remat_model(cfg, sd, **{'model.remat': r}))
+        alone[r] = in_turns({r: stepper(cfg, state, batch)}, 4,
+                            step_ms_peak)[r]
+        del state
+        torch.cuda.empty_cache()
+    out['alone'] = alone
+    log(f'bs=8 step alone: off {alone[False][0]:.1f} ms, peak '
+        f'{alone[False][1]:.2f} GiB; remat {alone[True][0]:.1f} ms, peak '
+        f'{alone[True][1]:.2f} GiB')
+
+    # with model.stem_pallas: B3 runs in the first pass and again in the
+    # recompute
+    stem = {r: remat_model(cfg, sd, **{'model.stem_pallas': True,
+                                       'model.remat': r})
+            for r in (False, True)}
+    small = train_batch(2, FRAMES, CROP, 32, 'cuda')
+    res = {}
+    with tf32_off():
+        for r in (False, True):
+            reset_counts()
+            res[r] = loss_and_grads(stem[r], cfg, small)
+            torch.cuda.synchronize()
+            res[r] += (counts(),)
+    assert res[False][2][2] == 2 and res[True][2][2] == 4, \
+        (res[False][2], res[True][2])
+    out['v1'] += res[True][2][2]
+    out['fwd'] += res[True][2][0]
+    out['bwd'] += res[True][2][1]
+    worst = grads_close(res[True][1], res[False][1], 'remat stem',
+                        rtol=1e-5, atol_rel=1e-5)
+    log(f'model.stem_pallas, bs=2: remat == off on every gradient (worst '
+        f'|diff| / max {worst:.3g}); B3 launches per step {res[True][2][2]} '
+        f'with remat, {res[False][2][2]} without')
+    del stem, res, batch, small
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_transformer() -> dict:
+    log('== phase 32: model.transformer (the transformer conf head) at '
+        'full width, f32, TF32 off')
+    tcfg = load_config(CONFIG, overrides={'model.transformer': True})
+    sd = factory.init_weights(factory.build_model(
+        tcfg, frame_num=FRAMES, crop_size=CROP, dtype=torch.float32),
+        seed=7).state_dict()
+    out = {}
+    with tf32_off():
+        model = build_model(sd, torch.float32, 'cuda', transformer=True)
+        clips = random_clips(32, seed=32)
+        with torch.inference_mode():
+            dev1 = model(clips[:1])
+        cpu_model = build_model(sd, torch.float32, 'cpu', transformer=True)
+        with torch.inference_mode():
+            ref1 = cpu_model(clips[:1].cpu())
+        for key in OUT_KEYS:
+            got, want = dev1[key].float().cpu(), ref1[key].float()
+            assert torch.isfinite(got).all(), key
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3,
+                                       msg=lambda m: f'{key}: {m}')
+        reset_counts()
+        with torch.inference_mode():
+            out_k = model(clips)
+        torch.cuda.synchronize()
+        out['fwd'] = counts()[0]
+        with torch.inference_mode(), boundary_pool.force_plain():
+            out_p = model(clips)
+        assert out['fwd'] == POOLS_PER_FORWARD, out['fwd']
+        for key in OUT_KEYS:
+            if not torch.equal(out_k[key], out_p[key]):
+                raise AssertionError(f'transformer: kernel path != plain '
+                                     f'path on {key}')
+        del model, cpu_model, out_k, out_p, clips
+        torch.cuda.empty_cache()
+    log(f'card == CPU at W=1 (rtol 1e-3, atol 2e-3) on every out key; W=32 '
+        f'kernel path == plain path bit for bit, {out["fwd"]} B1 launches')
+    # one bs=1 step, PyTorch's defaults
+    state = new_state(tcfg, train_model(tcfg, FRAMES, CROP, 'cuda'))
+    batch = train_batch(1, FRAMES, CROP, 33, 'cuda')
+    step = stepper(tcfg, state, batch)
+    reset_counts()
+    metrics = step()
+    torch.cuda.synchronize()
+    c = counts()
+    assert c[:2] == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), c
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    head = state.model.coarse_pyramid_detection.conf_head
+    assert isinstance(head, layers.TransformerHead)
+    out['fwd'] += c[0]
+    out['bwd'] = c[1]
+    out['ms'] = in_turns({'step': step}, 4, step_ms_peak)['step']
+    log(f'bs=1 train step: cost {metrics["cost"].item():.6f}, B1 + B2 '
+        f'{c[:2]}, {out["ms"][0]:.1f} ms, peak {out["ms"][1]:.2f} GiB; '
+        f'{card_line()}')
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def u8_windows(n: int, seed: int):
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    clips = torch.randint(0, 256, (n, FRAMES, CROP, CROP, 3), generator=g,
+                          device='cuda', dtype=torch.uint8)
+    valid = torch.full((n,), FRAMES, dtype=torch.int32, device='cuda')
+    valid[-1] = FRAMES // 2 + 3              # one zero-padded window
+    return clips, valid
+
+
+EXPORT_W = 128                  # the exported programs' window batch
+
+
+def phase_export(state_dict, root) -> dict:
+    log('== phase 33: tools.export (torch.export through the opental:: '
+        'custom ops), uint8: W=128 bf16 timed beside live and held '
+        'against it; with model.stem_pallas, f32 W=8 equal to live')
+    flags = factory.model_flags(load_config(CONFIG))
+    cuda = torch.device('cuda')
+    out = {'fwd': 0, 'v2': 0, 'runs': {}}
+    for stem, dtype, w in ((False, torch.bfloat16, EXPORT_W),
+                           (True, torch.float32, 8)):
+        label = f'stem_pallas {stem}, {dtype}, W={w}'
+        model = build_model(state_dict, dtype, 'cuda', stem_pallas=stem)
+        module = export.serving_module(model, FRAMES, flags,
+                                       uint8_ingest=True, device=cuda)
+        t0 = time.perf_counter()
+        program = export.export_program(module, export.example_inputs(
+            w, FRAMES, CROP, 3, True, cuda))
+        export_s = time.perf_counter() - t0
+        ops = export.custom_op_counts(program)
+        want = {export.POOL_OP: POOLS_PER_FORWARD}
+        if stem:
+            want['opental.stem_pack96_v2'] = 1
+        assert ops == want, (label, ops)
+        path = os.path.join(root, 'export.pt2')
+        torch.export.save(program, path)
+        size = os.path.getsize(path)
+        del program
+        t0 = time.perf_counter()
+        loaded = export.load_exported(path)
+        load_s = time.perf_counter() - t0
+        clips, valid = u8_windows(w, 330 + w)
+        pipe = InferencePipeline(model, use_edl=True, os_head=True,
+                                 device='cuda')
+
+        def live():
+            return pipe.forward_decode(ingest_windows(clips, valid))
+
+        def run():
+            with torch.inference_mode():
+                return loaded(clips, valid)
+
+        reset_counts()
+        got = run()
+        torch.cuda.synchronize()
+        c = counts()
+        assert (c[0], c[3]) == (POOLS_PER_FORWARD, int(stem)), (label, c)
+        out['fwd'] += c[0]
+        out['v2'] += c[3]
+        if dtype == torch.float32:
+            with tf32_off():
+                got, want_dec = run(), live()._asdict()
+                for k, v in got.items():
+                    torch.testing.assert_close(v, want_dec[k], rtol=1e-6,
+                                               atol=1e-6,
+                                               msg=lambda m: f'{k}: {m}')
+            log(f'{label}, TF32 off: the loaded program == live '
+                f'forward_decode (rtol 1e-6, atol 1e-6) on every output')
+        else:
+            # the timed bf16 program against live bf16: bf16's rtol, and
+            # an atol of 1.6e-2 of each output's largest element
+            with tf32_off():
+                got, want_dec = run(), live()._asdict()
+            exact, worst = True, 0.0
+            for k, v in got.items():
+                assert torch.isfinite(v).all(), (label, k)
+                scale = want_dec[k].abs().max().item()
+                torch.testing.assert_close(v, want_dec[k], rtol=1.6e-2,
+                                           atol=1.6e-2 * scale,
+                                           msg=lambda m: f'{k}: {m}')
+                exact = exact and torch.equal(v, want_dec[k])
+                worst = max(worst, (v - want_dec[k]).abs().max().item()
+                            / max(scale, 1e-30))
+            log(f'{label}: the loaded program == live forward_decode in '
+                f'bf16 (rtol 1.6e-2 + 1.6e-2 of each output\'s max) on '
+                f'every output; bit for bit: {exact}, worst |diff| / max '
+                f'{worst:.3g}')
+        t = in_turns({'live': live, 'exported': run}, 1,
+                     lambda fn, reps: time_ms(fn, reps, warmup=1))
+        out['runs'][label] = dict(t, export_s=export_s, load_s=load_s,
+                                  mb=size / 1e6)
+        log(f'{label}: export {export_s:.1f} s, {size / 1e6:.1f} MB, load '
+            f'{load_s:.1f} s; custom-op nodes {ops}; forward + decode: live '
+            f'{t["live"]:.2f} ms, exported {t["exported"]:.2f} ms '
+            f'({t["exported"] / t["live"]:.3f} x); launches per call B1 '
+            f'{c[0]}, B4 {c[3]}; {card_line()}')
+        os.remove(path)
+        del model, module, loaded, pipe, clips, valid, got
+        torch.cuda.empty_cache()
+    return out
+
+
+STREAM_CHUNKS = (37, 256, 1000, 3000)
+
+
+def stream(pipe, video, batch: int, seed: int):
+    rng = np.random.RandomState(seed)
+    sess = StreamingSession(pipe, 10.0, max_batch=batch)
+    resident, i = 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while i < len(video):
+        n = int(rng.choice(STREAM_CHUNKS))
+        sess.feed(video[i:i + n])
+        resident = max(resident, sess.frames_resident)
+        i += n
+    props = sess.finalize()
+    torch.cuda.synchronize()
+    return props, time.perf_counter() - t0, resident, sess.windows_processed
+
+
+def same_proposals(want, got, label: str) -> None:
+    """Two proposal lists of one video per proposal (phase 17's rule):
+    the same class, score and segment at rtol 1e-4 (segments atol
+    1e-4)."""
+    as_json = lambda ps: [dict(p, label=p['cls']) for p in ps]  # noqa: E731
+    assert len(want) == len(got), (label, len(want), len(got))
+    for a, b in pair_proposals(as_json(want), as_json(got)):
+        assert a['label'] == b['label'], (label, a, b)
+        np.testing.assert_allclose(b['score'], a['score'], rtol=1e-4,
+                                   err_msg=label)
+        np.testing.assert_allclose(b['segment'], a['segment'], rtol=1e-4,
+                                   atol=1e-4, err_msg=label)
+
+
+def phase_streaming(state_dict, video) -> dict:
+    batch = 8
+    n = len(video)
+    n_windows = len(window_offsets(n, FRAMES, 128))
+    forwards = -(-n_windows // batch)
+    log(f'== phase 34: StreamingSession over the {n}-frame video in chunks '
+        f'of {STREAM_CHUNKS} frames, max_batch {batch} ({n_windows} '
+        f'windows, {forwards} forwards)')
+    out = {'fwd': 0}
+    with tf32_off():
+        pipe = InferencePipeline(build_model(state_dict, torch.float32,
+                                             'cuda'),
+                                 use_edl=True, os_head=True, device='cuda')
+        want = pipe.run_video(video, n, 10.0)
+        reset_counts()
+        got, wall, resident, ran = stream(pipe, video, batch, seed=34)
+        out['fwd'] += counts()[0]
+    assert ran == n_windows, (ran, n_windows)
+    assert out['fwd'] == POOLS_PER_FORWARD * forwards, out['fwd']
+    assert resident <= FRAMES, resident
+    same_proposals(want, got, 'streaming f32')
+    log(f'f32, TF32 off: finalize == run_video per proposal ({len(got)} '
+        f'proposals, rtol 1e-4); largest frames_resident after a feed '
+        f'{resident}; B1 {out["fwd"]} = {POOLS_PER_FORWARD} x {forwards} '
+        f'forwards; {n_windows / wall:.2f} windows/s')
+    pipe = InferencePipeline(build_model(state_dict, torch.bfloat16,
+                                         'cuda'),
+                             use_edl=True, os_head=True, device='cuda')
+    walls = []
+    for rep in range(2):
+        reset_counts()
+        props, wall, _, _ = stream(pipe, video, batch, seed=35 + rep)
+        out['fwd'] += counts()[0]
+        walls.append(wall)
+        assert props
+    out['windows_s'] = [n_windows / w for w in walls]
+    log(f'bf16: {len(props)} proposals; windows/s, first and warm: '
+        f'{out["windows_s"]}; {card_line()}')
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_single_device_slice(cfg, state_dict, root, lengths, video
+                            ) -> dict:
+    """Phases 30-35 (`video`: phase 16's 33000-frame packed video);
+    returns their launch counts and numbers."""
+    out = {'fuse': phase_fuse_ssl(cfg), 'remat': phase_remat(cfg),
+           'transformer': phase_transformer(),
+           'export': phase_export(state_dict, root),
+           'stream': phase_streaming(state_dict, video),
+           'profiling': phase_profiling(root, lengths)}
+    out['fwd'] = sum(out[k]['fwd'] for k in out)
+    out['bwd'] = sum(out[k].get('bwd', 0) for k in ('fuse', 'remat',
+                                                     'transformer'))
+    out['v1'] = out['remat']['v1']
+    out['v2'] = out['export']['v2']
+    return out
+
+
+def phase_profiling(root, lengths) -> dict:
+    log('== phase 35: utils.profiling: PhaseTimer around run_test, a '
+        'torch.profiler trace, device_memory_stats')
+    cfg = synthetic_test_config(root, **{'testing.output_json':
+                                         'profiled.json'})
+    timer = profiling.PhaseTimer()
+    reset_counts()
+    for _ in range(2):
+        with timer.phase('run_test'):
+            path = run_test(cfg)
+        torch.cuda.synchronize()
+    fwd = counts()[0]
+    assert fwd == 2 * POOLS_PER_FORWARD * forwards_of(lengths), fwd
+    check_detection_json(path, lengths)
+    pipe, _, _ = build_pipeline(cfg)
+    clips, valid = u8_windows(8, 35)
+    logdir = os.path.join(root, 'trace')
+    reset_counts()
+    with profiling.trace(logdir) as prof:
+        # any tensor on the card names the stream the phase waits for
+        with timer.phase('forward', sync=clips):
+            pipe.forward_decode(ingest_windows(clips, valid))
+    fwd += counts()[0]
+    trace_path = os.path.join(logdir, profiling.TRACE_FILE)
+    size = os.path.getsize(trace_path)
+    device_ms_total = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    assert size > 0 and device_ms_total > 0, (size, device_ms_total)
+    dump = os.path.join(root, 'phases.json')
+    timer.dump(dump)
+    with open(dump) as f:
+        phases = json.load(f)
+    assert phases['counts'] == {'run_test': 2, 'forward': 1}, phases
+    mem = profiling.device_memory_stats()
+    assert set(mem['cuda:0']) == {'bytes_in_use', 'peak_bytes_in_use'}
+    log(f'PhaseTimer: {phases["mean_seconds"]}; trace {size / 1e6:.2f} MB '
+        f'with {device_ms_total:.2f} ms of device time; memory '
+        f'{mem["cuda:0"]}')
+    del pipe, clips, valid
+    torch.cuda.empty_cache()
+    return {'fwd': fwd, 'phases': phases['mean_seconds']}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false: this run '
@@ -3202,7 +3746,6 @@ def main() -> int:
     seeded = factory.init_weights(factory.build_model(
         cfg, frame_num=FRAMES, crop_size=CROP, dtype=torch.float32), seed=0)
     state_dict = seeded.state_dict()
-
     clips = random_clips(32, 0)
     calls = capture_pool_inputs(build_model(state_dict, torch.bfloat16,
                                             'cuda'), clips)
@@ -3237,12 +3780,17 @@ def main() -> int:
         fused = phase_fusion(root, dirs, videos)
         threshold, thr_launches = phase_threshold(root, dirs, videos)
         shared = phase_shared(root, dirs, videos, state_dict)
+        single = run_single_device_slice(
+            cfg, state_dict, root, lengths, np.load(os.path.join(
+                dirs['rgb'], f'video_packed_{len(PACKED_LENGTHS) - 1:03d}'
+                '.npy')))
         shutil.rmtree(dirs['rgb'])
         shutil.rmtree(dirs['flow'])
         launches += packed['launches'] + fused[False]['counts'][0] \
             + fused[True]['counts'][0] + thr_launches \
             + shared['launches'] + shared['stem_b1']
-        v2_launches += fused[True]['counts'][3] + shared['b4_launches']
+        v2_launches += fused[True]['counts'][3] + shared['b4_launches'] \
+            + single['v2']
         max_err = max(max_err, b1_w128_err, shared['err'])
 
         anet_sd = factory.init_weights(factory.build_model(
@@ -3266,7 +3814,10 @@ def main() -> int:
         train_bwd += rpl['bwd']
         openmax = phase_openmax(root)
         cross = phase_cross_search(root, lengths)
-        launches += rpl['infer'] + openmax['launches'] + cross['launches']
+        launches += rpl['infer'] + openmax['launches'] + cross['launches'] \
+            + single['fwd']
+        train_bwd += single['bwd']
+        v1_launches += single['v1']
         phase_train_speed(cfg)
         phase_throughput(state_dict, root, lengths)
     finally:
@@ -3288,14 +3839,28 @@ def main() -> int:
         f'the span shape {shared["b4"]}; step ms {rpl["ms"]}, peak GiB '
         f'{rpl["peak"]}; OpenMax stages {openmax["times"]}; cross-data '
         f'{cross["cross_s"]:.3f} s, search_param {cross["search_s"]}')
+    ms_gib = lambda t: f'{t[0]:.1f} ms, {t[1]:.2f} GiB'  # noqa: E731
+    fuse, remat = single['fuse'], single['remat']
+    log(f'single-device slice: fused / sequential step '
+        f'{ {bs: (ms_gib(fuse[bs][True]), ms_gib(fuse[bs][False])) for bs in (1, 8)} }; '
+        f'remat / off step in turns {ms_gib(remat["ms"][True])} / '
+        f'{ms_gib(remat["ms"][False])}, alone '
+        f'{ms_gib(remat["alone"][True])} / {ms_gib(remat["alone"][False])}; '
+        f'transformer step {ms_gib(single["transformer"]["ms"])}; export '
+        f'{single["export"]["runs"]}; streaming windows/s '
+        f'{single["stream"]["windows_s"]}; PhaseTimer '
+        f'{single["profiling"]["phases"]}')
     log(f'boundary_max_pool_fwd launches: {launches} in the inference runs '
         f'(per-video set, packed, fused off and on, calibration, shared '
         f'packed and per video and with stem_pallas, RPL / GCPL run_test, '
         f'OpenMax, cross-data, search_param; ANet: first, fused, binary, '
-        f'calibration), {train_fwd} in the training runs (THUMOS, ANet, '
-        f'RPL, GCPL); stem pack v2 {v2_launches} in '
-        f'the stem_pallas inference runs (per-video set, fused, shared), v1 '
-        f'{v1_launches} in the stem_pallas training run; B4 at C = 2 '
+        f'calibration; phases 30-35: the fused, remat and transformer '
+        f'steps and forwards, the exported programs, streaming, the '
+        f'profiled run_test), {train_fwd} in the training runs (THUMOS, '
+        f'ANet, RPL, GCPL); B2 {train_bwd} (with phases 30-32); stem pack '
+        f'v2 {v2_launches} in the stem_pallas inference runs (per-video '
+        f'set, fused, shared, the exported programs), v1 {v1_launches} in '
+        f'the stem_pallas training run and the remat steps; B4 at C = 2 '
         f'(W=128 bf16) {b4_flow[PACKED_BATCH]}, W=32 {b4_flow[32]}; '
         f'threshold {threshold}')
     log(f'total {time.perf_counter() - t_start:.1f} s')

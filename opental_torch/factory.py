@@ -8,6 +8,7 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch import nn
 
 from opental_torch.config import Config
 from opental_torch.losses.edl import EDLConfig
@@ -46,15 +47,15 @@ def build_model(cfg: Config, frame_num: Optional[int] = None,
     in_channels overrides `model.in_channels` (2 for the flow stream of
     two-stream fusion).
 
-    `model.trunk_tfold` and `model.remat` are read by the JAX factory
-    (`opental_tpu/factory.py:58-64`) and select a formulation of the same
-    math (a folded trunk; recomputing activations in the backward): the
-    port has one formulation, so they change nothing here."""
+    `model.remat` recomputes the backbone's blocks in the backward
+    (`torch.utils.checkpoint`, as `opental_tpu/factory.py:61-64` reads
+    it). `model.transformer` makes the conf head a transformer encoder.
+    `model.trunk_tfold` selects the TPU's folded-trunk formulation of the
+    same math (`opental_tpu/factory.py:58`): the port has one, so it
+    changes nothing here."""
     flags = model_flags(cfg)
     if in_channels is not None:
         flags['in_channels'] = in_channels
-    if flags['transformer']:
-        raise NotImplementedError('model.transformer is not ported yet')
     if dtype is None and cfg.get_path('model.compute_dtype') in (
             'bfloat16', 'bf16'):
         dtype = torch.bfloat16
@@ -74,6 +75,8 @@ def build_model(cfg: Config, frame_num: Optional[int] = None,
         # reads it (factory.py:60)
         stem_pallas=bool(cfg.get_path('model.stem_pallas', False)),
         arch=flags['arch'], use_rpl=bool(flags['use_rpl']),
+        remat=bool(cfg.get_path('model.remat', False)),
+        transformer=bool(flags['transformer']),
         dtype=None if dtype == torch.float32 else dtype)
 
 
@@ -150,7 +153,8 @@ def init_train_weights(model: torch.nn.Module, seed: int = 0
                        ) -> torch.nn.Module:
     """Seeded starting weights for training, as the JAX package's init and
     the reference's reset_params give them: glorot-uniform convolutions
-    with zero biases; RPL centers 0.1 x normal (`layers.py:469-471` of
+    (and the transformer head's dense and attention projections) with
+    zero biases; RPL centers 0.1 x normal (`layers.py:469-471` of
     the JAX package); the RPL radius, norms, BN statistics and the
     ScaleExp scales at their defaults. An ANet BDNet then takes the
     normal(0, 0.01) re-init of its tower and head convolutions
@@ -158,10 +162,13 @@ def init_train_weights(model: torch.nn.Module, seed: int = 0
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv3d)):
+            if isinstance(mod, (nn.Conv1d, nn.Conv3d, nn.Linear)):
                 _glorot_(mod.weight, g)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, nn.MultiheadAttention):
+                _glorot_(mod.in_proj_weight, g)
+                mod.in_proj_bias.zero_()
             elif isinstance(mod, RPLHead):
                 mod.centers.copy_(0.1 * torch.randn(mod.centers.shape,
                                                     generator=g))
@@ -178,7 +185,10 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     glorot-uniform convolutions, perturbed norms and BN statistics, class
     and center head biases spread by `HEAD_BIAS_STD`, and actionness head
     biases near +2, so that actionness clears its 0.5 gate with room and
-    class scores spread across conf_thresh; RPL centers 0.1 x normal."""
+    class scores spread across conf_thresh; RPL centers 0.1 x normal; the
+    transformer head's projections glorot-uniform with biases and
+    LayerNorms perturbed (its class Dense's bias spread as a conf
+    head's)."""
     g = torch.Generator().manual_seed(seed)
 
     def normal(t, std, mean=0.0):
@@ -186,14 +196,14 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
 
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv3d)):
+            if isinstance(mod, (nn.Conv1d, nn.Conv3d, nn.Linear)):
                 _glorot_(mod.weight, g)
                 if mod.bias is None:
                     continue
                 if name.endswith('actionness_head.conv1d'):
                     normal(mod.bias, 0.5, 2.0)
                 elif name.endswith(('center_head.conv1d',
-                                    'conf_head.conv1d')):
+                                    'conf_head.conv1d', 'conf_head.fc')):
                     normal(mod.bias, HEAD_BIAS_STD)
                 else:
                     normal(mod.bias, 0.1)
@@ -204,7 +214,10 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
                 mod.running_var.copy_(
                     0.8 + 0.4 * torch.rand(mod.running_var.shape,
                                            generator=g))
-            elif isinstance(mod, GroupNorm32):
+            elif isinstance(mod, nn.MultiheadAttention):
+                _glorot_(mod.in_proj_weight, g)
+                normal(mod.in_proj_bias, 0.1)
+            elif isinstance(mod, (GroupNorm32, nn.LayerNorm)):
                 normal(mod.weight, 0.1, 1.0)
                 normal(mod.bias, 0.1)
             elif isinstance(mod, RPLHead):

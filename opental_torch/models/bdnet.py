@@ -5,7 +5,8 @@ AFSD/thumos14/BDNet.py:435-561. Input clips are (B, C, T, H, W) in
 [-1, 1] (the reference's layout); the out_dict has the JAX package's keys
 and layouts. Top-level names ('backbone._model', 'coarse_pyramid_detection')
 follow the reference state_dict. `ssl_forward` is the SSL triplet pass of
-training (bdnet.py:166-192). `backbone_features` and
+training (bdnet.py:166-192); `train_forward` fuses it with the main pass
+(bdnet.py:125-165). `backbone_features` and
 `detect_from_features` split the forward at the backbone, as the
 shared-backbone inference runs it; `get_feat` adds the class heads'
 inputs (`conf_feat`, `prop_conf_feat`) that OpenMax reads
@@ -81,7 +82,10 @@ class BDNet(nn.Module):
     `stem_pallas` runs the I3D stem through the stem-pack kernel
     (`model.stem_pallas`; the same weights and math either way).
     `use_rpl` gives the THUMOS pyramid reciprocal-point class heads
-    (`model.use_rpl`, the RPL / GCPL baselines).
+    (`model.use_rpl`, the RPL / GCPL baselines). `remat` recomputes the
+    backbone's blocks in the backward (`model.remat`); `transformer`
+    makes the THUMOS pyramid's conf head a `TransformerHead`
+    (`model.transformer`).
     """
 
     def __init__(self, in_channels: int = 3, num_classes: int = 16,
@@ -90,13 +94,19 @@ class BDNet(nn.Module):
                  crop_size: int = 96, freeze_bn: bool = True,
                  freeze_bn_affine: bool = True, dropout: float = 0.0,
                  stem_pallas: bool = False, arch: str = 'thumos',
-                 use_rpl: bool = False,
+                 use_rpl: bool = False, remat: bool = False,
+                 transformer: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if arch not in ('thumos', 'anet'):
             raise ValueError(f'arch {arch!r}')
         if use_rpl and arch != 'thumos':
             raise ValueError('use_rpl needs the THUMOS pyramid')
+        if transformer and (arch != 'thumos' or use_rpl):
+            # the JAX pyramid reads RPL centers off the conf head, which
+            # a transformer head has none of
+            raise ValueError('transformer needs the THUMOS pyramid '
+                             'without use_rpl')
         self.arch = arch
         self.use_rpl = use_rpl
         self.in_channels = in_channels
@@ -111,7 +121,8 @@ class BDNet(nn.Module):
         self.backbone = I3DBackbone(in_channels=in_channels,
                                     freeze_bn=freeze_bn,
                                     freeze_bn_affine=freeze_bn_affine,
-                                    stem_pallas=stem_pallas, dtype=dtype)
+                                    stem_pallas=stem_pallas, remat=remat,
+                                    dtype=dtype)
         if arch == 'anet':
             self.coarse_pyramid_detection = AnetCoarsePyramid(
                 num_classes=self.head_classes, frame_num=frame_num,
@@ -120,7 +131,7 @@ class BDNet(nn.Module):
             self.coarse_pyramid_detection = CoarsePyramid(
                 num_classes=self.head_classes, frame_num=frame_num,
                 crop_size=crop_size, os_head=os_head, dropout=dropout,
-                use_rpl=use_rpl, dtype=dtype)
+                use_rpl=use_rpl, transformer=transformer, dtype=dtype)
 
     @property
     def head_classes(self) -> int:
@@ -151,6 +162,39 @@ class BDNet(nn.Module):
             out['conf_feat'] = out['ctr_feat']
             out['prop_conf_feat'] = out['prop_ctr_feat']
         return out
+
+    def train_forward(self, x: torch.Tensor, ssl_x: torch.Tensor,
+                      proposals: torch.Tensor
+                      ) -> Tuple[Dict[str, Any],
+                                 Tuple[List[torch.Tensor], List[torch.Tensor],
+                                       List[torch.Tensor]]]:
+        """The main and SSL passes fused: one backbone and one pyramid
+        pass over cat([x, ssl_x]) (a conv batch of 2B). The SSL triplet
+        features are the (start, end) pairs of the 2B outputs' SSL half,
+        pooled as `ssl_forward` pools them; batched outputs keep their
+        main half, and the shared tensors (priors, RPL centers and radius)
+        pass through. The same math as `forward` + `ssl_forward` only
+        while BN normalizes by its running statistics: the train step
+        fuses only then."""
+        b = x.shape[0]
+        full = self.coarse_pyramid_detection(self.backbone(
+            torch.cat([x, ssl_x], 0)))
+
+        def ssl_half(lo: str, hi: str) -> torch.Tensor:
+            return torch.cat([full[lo][b:], full[hi][b:]], -1)
+
+        trip = [ssl_half('start', 'end'),
+                ssl_half('start_loc_prop', 'end_loc_prop'),
+                ssl_half('start_conf_prop', 'end_conf_prop')]
+        unbatched = ('priors', 'cls_ctr', 'prop_cls_ctr', 'rpl_radius')
+        out = {k: (v[:b] if k not in unbatched
+                   and isinstance(v, torch.Tensor) else v)
+               for k, v in full.items()}
+        if self.use_edl:
+            out['unct'] = dirichlet_uncertainty(out['conf'], self.evidence)
+            out['prop_unct'] = dirichlet_uncertainty(out['prop_conf'],
+                                                     self.evidence)
+        return out, self._ssl_triplets(trip, proposals)
 
     def ssl_forward(self, x: torch.Tensor, proposals: torch.Tensor
                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor],

@@ -9,6 +9,9 @@ space-to-depth stem (`model.stem_pallas`: the stem-pack kernel and one 2D
 convolution, `models/layers.space_to_depth_conv3d`) on the same weight.
 The JAX package's XLA space-to-depth (pack24 + conv3d), temporal-fold and
 decomposed variants are TPU layouts of the same math and are not ported.
+`remat` recomputes each block (the stem, each Unit3D, each
+InceptionModule) in the backward instead of keeping its activations
+(`model.remat`, `opental_tpu/models/i3d.py:135-160`).
 """
 
 from __future__ import annotations
@@ -17,8 +20,10 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from opental_torch.models.layers import Unit3D, max_pool_3d_same
+from opental_torch.models.layers import (Unit3D, bn_recompute,
+                                         max_pool_3d_same)
 
 # branch output channels per inception module (i3d_backbone.py:229-295)
 INCEPTION_SPECS: Dict[str, Sequence[int]] = {
@@ -81,8 +86,9 @@ class InceptionI3d(nn.Module):
 
     def __init__(self, in_channels: int = 3, freeze_bn: bool = True,
                  freeze_bn_affine: bool = True, stem_pallas: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 remat: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.remat = remat
         # reference freeze modes (thumos14/BDNet.py:39-49): freeze_bn keeps
         # the running statistics and the affine; freeze_bn: false trains
         # both, and freeze_bn_affine only acts with freeze_bn
@@ -112,6 +118,12 @@ class InceptionI3d(nn.Module):
         for ep in ENDPOINTS:
             if ep in MAXPOOL_SPECS:
                 x = max_pool_3d_same(x, *MAXPOOL_SPECS[ep])
+            elif self.remat and torch.is_grad_enabled():
+                # the recompute leaves BN's running statistics as the
+                # first pass left them (`bn_recompute`), as JAX's
+                # functional nn.remat does
+                x = checkpoint(getattr(self, ep), x, use_reentrant=False,
+                               context_fn=bn_recompute)
             else:
                 x = getattr(self, ep)(x)
             if ep in self.KEEP:

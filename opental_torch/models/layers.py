@@ -19,7 +19,9 @@ Numerics follow the JAX package:
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+import math
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +31,7 @@ from opental_torch.ops import stem_pack
 
 GN_EPS = 1e-5   # torch GroupNorm default (reference nn.GroupNorm(32, C))
 BN_EPS = 1e-3   # reference BatchNorm3d(eps=0.001) in the I3D backbone
+LN_EPS = 1e-6   # flax LayerNorm's default (torch's is 1e-5)
 
 
 def _to_tuple(x, n: int) -> Tuple[int, ...]:
@@ -54,6 +57,27 @@ def _f_pad(sizes: Sequence[int], kernel: Sequence[int],
     for size, k, s in reversed(list(zip(sizes, kernel, stride))):
         pads += same_pad_amount(size, k, s)
     return pads
+
+
+_BN_RECOMPUTING = False
+
+
+@contextlib.contextmanager
+def _recomputing() -> Iterator[None]:
+    global _BN_RECOMPUTING
+    prev, _BN_RECOMPUTING = _BN_RECOMPUTING, True
+    try:
+        yield
+    finally:
+        _BN_RECOMPUTING = prev
+
+
+def bn_recompute():
+    """`context_fn` of `torch.utils.checkpoint.checkpoint`: the first
+    pass runs as it is, the recompute in the backward with
+    `FrozenBatchNorm`'s running-statistics update off, so that a
+    checkpointed train-mode BN updates them once per step."""
+    return contextlib.nullcontext(), _recomputing()
 
 
 class FrozenBatchNorm(nn.Module):
@@ -97,11 +121,13 @@ class FrozenBatchNorm(nn.Module):
             var = (xf - mean.view(shape)).square().mean(dim=axes).clamp_min(
                 0.0)
             n = x.numel() // x.shape[1]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean.detach())
-                self.running_var.mul_(1 - m).add_(
-                    m * (var.detach() * (n / max(n - 1, 1))))
+            # the backward's recompute (`bn_recompute`) leaves them
+            if not _BN_RECOMPUTING:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(m * mean.detach())
+                    self.running_var.mul_(1 - m).add_(
+                        m * (var.detach() * (n / max(n - 1, 1))))
         else:
             mean = self.running_mean.float()
             var = self.running_var.float()
@@ -309,6 +335,66 @@ class RPLHead(nn.Module):
         dist = (f2 - 2.0 * cross + c2) / float(x.shape[-1])
         return dist.reshape(x.shape[0], x.shape[1], self.num_classes,
                             self.num_centers).mean(dim=-1)
+
+
+def positional_encoding(length: int, d_model: int) -> torch.Tensor:
+    """Sinusoidal table (length, d_model), float32 (reference
+    layers.py:217-241; `opental_tpu/models/layers.py:489-497`)."""
+    position = torch.arange(length, dtype=torch.float32)[:, None]
+    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32)
+                         * (-math.log(10000.0) / d_model))
+    pe = torch.zeros((length, d_model))
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-norm encoder layer with a ReLU FFN, as the JAX package's
+    (`opental_tpu/models/layers.py:500-518`): attention dropout only
+    (flax's `dropout_rate`; no dropout on the residual paths, unlike
+    `nn.TransformerEncoderLayer`, whose key names it keeps:
+    `self_attn.in_proj_weight`, `self_attn.out_proj`, `linear1/2`,
+    `norm1/2`), LayerNorm eps 1e-6. Input (B, t, d)."""
+
+    def __init__(self, d_model: int, nheads: int = 8, d_ff: int = 256,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.self_attn = nn.MultiheadAttention(d_model, nheads,
+                                               dropout=dropout,
+                                               batch_first=True)
+        self.linear1 = nn.Linear(d_model, d_ff)
+        self.linear2 = nn.Linear(d_ff, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        attn, _ = self.self_attn(x, x, x, need_weights=False)
+        x = self.norm1(x + attn)
+        return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+
+
+class TransformerHead(nn.Module):
+    """The optional transformer conf head (reference layers.py:244-311;
+    `opental_tpu/models/layers.py:521-541`): `nlayers` encoder layers
+    with d_ff = d_model // 2, then a Dense to the classes. Input
+    (B, t, d) channels-last, output (B, t, num_classes), computed in
+    float32 whatever the model's compute dtype (the JAX head takes no
+    dtype). Keys `layers.{i}.*` and `fc`."""
+
+    def __init__(self, num_classes: int, d_model: int = 512,
+                 nheads: int = 8, nlayers: int = 2, dropout: float = 0.1):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            TransformerEncoderLayer(d_model, nheads, d_model // 2, dropout)
+            for _ in range(nlayers)])
+        self.fc = nn.Linear(d_model, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        for layer in self.layers:
+            x = layer(x)
+        return self.fc(x)
 
 
 def interpolate_nearest_1d(x: torch.Tensor, out_len: int) -> torch.Tensor:

@@ -19,8 +19,10 @@ features, before any pool. `use_rpl` makes both class heads `RPLHead`s
 and adds the learnable RPL radius (`rpl_radius`, which the reference
 keeps in its loss module); `get_feat` (and `use_rpl`) adds the class
 heads' inputs, `ctr_feat` and `prop_ctr_feat` (B, P, 512), to the
-out_dict (`opental_tpu/models/pyramid.py:218-233, 262-303`). The
-transformer head is not ported.
+out_dict (`opental_tpu/models/pyramid.py:218-233, 262-303`).
+`transformer` makes the conf head a `TransformerHead` (channels-last,
+float32; `opental_tpu/models/pyramid.py:184-187`); `prop_conf_head`
+stays a Unit1D.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ import torch
 from torch import nn
 
 from opental_torch.models.layers import (ConvGNReLU1D, GroupNorm32,
-                                         RPLHead, ScaleExp, Unit1D, Unit3D,
+                                         RPLHead, ScaleExp, TransformerHead,
+                                         Unit1D, Unit3D,
                                          interpolate_nearest_1d)
 from opental_torch.ops.boundary_pool import boundary_max_pool_segmented
 
@@ -163,6 +166,7 @@ class CoarsePyramid(nn.Module):
     def __init__(self, num_classes: int, frame_num: int = 256,
                  crop_size: int = 96, os_head: bool = False,
                  dropout: float = 0.0, use_rpl: bool = False,
+                 transformer: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         oc = CONV_CHANNELS
@@ -178,9 +182,13 @@ class CoarsePyramid(nn.Module):
         self.loc_tower = _tower(dtype=dtype)
         self.conf_tower = _tower(dtype=dtype)
         self.loc_head = Unit1D(oc, 2, 3, activation=False, dtype=dtype)
-        self.conf_head = (RPLHead(num_classes, oc) if use_rpl else
-                          Unit1D(oc, num_classes, 3, activation=False,
-                                 dtype=dtype))
+        if transformer:
+            self.conf_head = TransformerHead(num_classes, oc)
+        elif use_rpl:
+            self.conf_head = RPLHead(num_classes, oc)
+        else:
+            self.conf_head = Unit1D(oc, num_classes, 3, activation=False,
+                                    dtype=dtype)
         if os_head:
             self.actionness_head = Unit1D(oc, 1, 3, activation=False,
                                           dtype=dtype)
@@ -242,7 +250,7 @@ class CoarsePyramid(nn.Module):
         """A class head on (B, 512, t) after dropout -> (B, t, K); the
         head's channels-last input goes to `taps` when it is kept."""
         x = self._drop(feat)
-        if not self.use_rpl:
+        if isinstance(head, Unit1D):
             if taps is not None:
                 taps.append(_channels_last(x))
             return _channels_last(head(x))

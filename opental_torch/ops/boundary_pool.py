@@ -20,9 +20,10 @@ each level. One level (T, K) is the plain contract above.
 
 `boundary_max_pool_segmented` is the op the model calls, and
 `boundary_max_pool` its one-level case: a CPU tensor goes to the plain
-version, a CUDA tensor to the hand-written kernels (`boundary_pool_cuda`:
-one launch of the forward, and when x needs a gradient of the forward
-that also writes the argmax plus one of the backward) or a raise.
+version, a CUDA tensor to the hand-written kernels through their custom
+ops (`boundary_pool_cuda`: one launch of the forward, and when x needs a
+gradient of the forward that also writes the argmax plus one of the
+backward) or a raise.
 `force_plain` exists for the tests and chip_smoke.py only, to hold the
 kernels against the plain version on the card.
 """
@@ -151,24 +152,6 @@ def boundary_max_pool_plain(x: torch.Tensor, segments: torch.Tensor
                             ((x.shape[1], segments.shape[1]),))
 
 
-class _CudaPool(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, segments, levels):
-        train = ctx.needs_input_grad[0]
-        out, argmax = boundary_pool_cuda.boundary_max_pool_fwd(
-            x, segments, with_argmax=train, levels=levels)
-        if train:
-            ctx.t_len, ctx.levels = x.shape[1], levels
-            ctx.save_for_backward(argmax)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        (argmax,) = ctx.saved_tensors
-        return boundary_pool_cuda.boundary_max_pool_bwd(
-            argmax, g.contiguous(), ctx.t_len, ctx.levels), None, None
-
-
 _FORCE_PLAIN = False
 
 
@@ -184,6 +167,12 @@ def force_plain():
         _FORCE_PLAIN = prev
 
 
+def _kernel_route(x: torch.Tensor) -> bool:
+    """Whether x goes to the kernels' custom ops: a CUDA tensor, unless
+    `force_plain` is on."""
+    return x.is_cuda and not _FORCE_PLAIN
+
+
 def boundary_max_pool_segmented(x: torch.Tensor, segments: torch.Tensor,
                                 levels: Optional[Sequence[Tuple[int, int]]]
                                 ) -> torch.Tensor:
@@ -192,8 +181,12 @@ def boundary_max_pool_segmented(x: torch.Tensor, segments: torch.Tensor,
     CUDA tensor, the plain version on a CPU tensor."""
     levels = boundary_pool_cuda.check_levels(levels, x.shape[1],
                                              segments.shape[1])
-    if x.is_cuda and not _FORCE_PLAIN:
-        return _CudaPool.apply(x, segments, levels)
+    if _kernel_route(x):
+        # the argmax only where the backward will read it
+        out, _ = boundary_pool_cuda.boundary_max_pool_fwd_op(
+            x, segments, [t for t, _ in levels], [k for _, k in levels],
+            x.requires_grad and torch.is_grad_enabled())
+        return out
     return _PlainPool.apply(x, segments, levels)
 
 

@@ -12,12 +12,19 @@ The library builds at the first call (`_build.load`), never at import.
 `LAUNCHES` counts the forward kernel's launches and `BWD_LAUNCHES` the
 backward's: each grows by one where its kernel is launched and nowhere
 else.
+
+The model reaches both kernels as `torch.library` custom ops,
+`opental::boundary_max_pool_fwd` and `opental::boundary_max_pool_bwd`
+(CUDA only, with fake implementations for tracing; the forward's
+autograd formula is the backward op), so `torch.export` keeps them as
+graph nodes. The level table travels as two `int[]` arguments, by
+value as before.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -161,3 +168,67 @@ def boundary_max_pool_bwd(argmax: torch.Tensor, g: torch.Tensor,
         raise RuntimeError(f'boundary_max_pool_bwd launch failed: CUDA '
                            f'error {err}')
     return dx
+
+
+# ------------------------------------------------------------ custom ops
+
+def _levels_of(level_t: List[int], level_k: List[int]) -> Levels:
+    return tuple(zip(level_t, level_k))
+
+
+@torch.library.custom_op('opental::boundary_max_pool_fwd', mutates_args=(),
+                         device_types='cuda')
+def boundary_max_pool_fwd_op(x: torch.Tensor, segments: torch.Tensor,
+                             level_t: List[int], level_k: List[int],
+                             with_argmax: bool
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`boundary_max_pool_fwd` as an op: (out, argmax), argmax an empty
+    int32 tensor unless with_argmax (an op returns no None)."""
+    out, argmax = boundary_max_pool_fwd(x, segments, with_argmax,
+                                        _levels_of(level_t, level_k))
+    if argmax is None:
+        argmax = torch.empty(0, dtype=torch.int32, device=x.device)
+    return out, argmax
+
+
+@boundary_max_pool_fwd_op.register_fake
+def _(x, segments, level_t, level_k, with_argmax):
+    shape = (x.shape[0], segments.shape[1], x.shape[2])
+    return (x.new_empty(shape),
+            x.new_empty(shape if with_argmax else (0,), dtype=torch.int32))
+
+
+@torch.library.custom_op('opental::boundary_max_pool_bwd', mutates_args=(),
+                         device_types='cuda')
+def boundary_max_pool_bwd_op(argmax: torch.Tensor, g: torch.Tensor,
+                             t_len: int, level_t: List[int],
+                             level_k: List[int]) -> torch.Tensor:
+    """`boundary_max_pool_bwd` as an op."""
+    return boundary_max_pool_bwd(argmax, g, t_len,
+                                 _levels_of(level_t, level_k))
+
+
+@boundary_max_pool_bwd_op.register_fake
+def _(argmax, g, t_len, level_t, level_k):
+    return g.new_empty((g.shape[0], t_len, g.shape[2]))
+
+
+def _setup_context(ctx, inputs, output):
+    x, _, level_t, level_k, with_argmax = inputs
+    ctx.with_argmax = with_argmax
+    ctx.t_len, ctx.level_t, ctx.level_k = x.shape[1], level_t, level_k
+    ctx.save_for_backward(output[1])
+
+
+def _backward(ctx, g_out, _g_argmax):
+    if not ctx.with_argmax:
+        raise RuntimeError('boundary_max_pool_fwd ran without its argmax: '
+                           'call it with with_argmax=True to differentiate')
+    (argmax,) = ctx.saved_tensors
+    dx = boundary_max_pool_bwd_op(argmax, g_out.contiguous(), ctx.t_len,
+                                  ctx.level_t, ctx.level_k)
+    return dx, None, None, None, None
+
+
+torch.library.register_autograd('opental::boundary_max_pool_fwd', _backward,
+                                setup_context=_setup_context)

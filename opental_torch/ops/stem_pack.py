@@ -28,7 +28,7 @@ library yardstick that chip_smoke.py times beside the kernel.
 
 `stem_pack96` / `stem_pack96_v2` are the ops the model calls: a CPU
 tensor goes to the plain version, a CUDA tensor to the hand-written
-kernel (`stem_pack_cuda`) or a raise. `force_plain` exists for the tests
+kernel through its custom op (`stem_pack_cuda`) or a raise. `force_plain` exists for the tests
 and chip_smoke.py only. `stem_conv_v2` / `stem_conv_v1` are the whole
 stride-2 7x7x7 stem convolution as one pack and one 4x4 VALID 2D
 convolution with `pack96_weights`, the same math as the plain strided
@@ -120,11 +120,17 @@ def force_plain():
         _FORCE_PLAIN = prev
 
 
+def _kernel_route(xp: torch.Tensor) -> bool:
+    """Whether xp goes to the kernel's custom ops: a CUDA tensor, unless
+    `force_plain` is on."""
+    return xp.is_cuda and not _FORCE_PLAIN
+
+
 def stem_pack96(xp: torch.Tensor, a_t: int = 4) -> torch.Tensor:
     """v1 z (B, t_out, Hp/2, Wp/2, 8 a_t C): kernel on a CUDA tensor,
     plain version on a CPU tensor."""
-    if xp.is_cuda and not _FORCE_PLAIN:
-        return stem_pack_cuda.stem_pack96(xp, a_t)
+    if _kernel_route(xp):
+        return stem_pack_cuda.stem_pack96_op(xp, a_t)
     return stem_pack96_plain(xp, a_t)
 
 
@@ -132,8 +138,8 @@ def stem_pack96_v2(xp: torch.Tensor, a_t: int = 4, fp: int = 1
                    ) -> torch.Tensor:
     """v2 z (B, t_out/fp, 8 a_t C, Hp/2, fp Wp/2): kernel on a CUDA
     tensor, plain version on a CPU tensor."""
-    if xp.is_cuda and not _FORCE_PLAIN:
-        return stem_pack_cuda.stem_pack96_v2(xp, a_t, fp)
+    if _kernel_route(xp):
+        return stem_pack_cuda.stem_pack96_v2_op(xp, a_t, fp)
     return stem_pack96_v2_plain(xp, a_t, fp)
 
 

@@ -7,6 +7,12 @@ The library builds at the first call (`_build.load`), never at import.
 `V1_LAUNCHES` and `V2_LAUNCHES` count the launches of each layout: each
 grows by one where its kernel is launched and nowhere else. `plan`
 picks the kernel's design from the layout, fp and xp's strides.
+
+The model reaches the kernel as two `torch.library` custom ops,
+`opental::stem_pack96` and `opental::stem_pack96_v2` (CUDA only, with
+fake implementations for tracing, no autograd: xp takes no gradient), so
+`torch.export` keeps them as graph nodes. An op receives xp with the
+strides it has, so a permuted view still reaches the kernel as it is.
 """
 
 from __future__ import annotations
@@ -107,3 +113,38 @@ def stem_pack96_v2(xp: torch.Tensor, a_t: int = 4, fp: int = 1
     Wp, C) f32|bf16, any strides), on xp's device and PyTorch's current
     stream."""
     return _launch(xp, a_t, fp, 1)
+
+
+# ------------------------------------------------------------ custom ops
+
+def _fake_pack(xp: torch.Tensor, a_t: int, fp: int, layout: int
+               ) -> torch.Tensor:
+    b, tp, hp, wp, c = xp.shape
+    t_out, ch = tp // 2 - a_t + 1, 8 * a_t * c
+    shape = ((b, t_out, hp // 2, wp // 2, ch) if layout == 0 else
+             (b, t_out // fp, ch, hp // 2, fp * (wp // 2)))
+    return xp.new_empty(shape)
+
+
+@torch.library.custom_op('opental::stem_pack96', mutates_args=(),
+                         device_types='cuda')
+def stem_pack96_op(xp: torch.Tensor, a_t: int) -> torch.Tensor:
+    """`stem_pack96` as an op."""
+    return stem_pack96(xp, a_t)
+
+
+@stem_pack96_op.register_fake
+def _(xp, a_t):
+    return _fake_pack(xp, a_t, 1, 0)
+
+
+@torch.library.custom_op('opental::stem_pack96_v2', mutates_args=(),
+                         device_types='cuda')
+def stem_pack96_v2_op(xp: torch.Tensor, a_t: int, fp: int) -> torch.Tensor:
+    """`stem_pack96_v2` as an op."""
+    return stem_pack96_v2(xp, a_t, fp)
+
+
+@stem_pack96_v2_op.register_fake
+def _(xp, a_t, fp):
+    return _fake_pack(xp, a_t, fp, 1)

@@ -4,7 +4,9 @@ Counterpart of `opental_tpu/train/step.py:26-243` (reference train loop
 body, AFSD/thumos14/train.py:164-252). The main and SSL passes run one
 after the other through the model in train mode, as the reference does
 (train.py:222-241): with `model.freeze_bn: false` each pass normalizes by
-its own batch statistics and EMA-updates the running ones. The SSL
+its own batch statistics and EMA-updates the running ones. With
+`fuse_ssl` (off by default, as in the JAX step) and BN frozen, one pass
+over the 2B batch computes both (`BDNet.train_forward`). The SSL
 triplet loss is gated by the mean of the batch's augmentation flags. The
 step updates the model, the optimizer and the EDL state in place.
 """
@@ -98,14 +100,27 @@ def make_anet_optimizer(model: torch.nn.Module, learning_rate: float,
 
 def compute_losses(model: torch.nn.Module, loss_cfg: LossConfig,
                    weights: LossWeights, batch: Dict[str, torch.Tensor],
-                   edl_state: Optional[EDLState], epoch: int
+                   edl_state: Optional[EDLState], epoch: int,
+                   fuse_ssl: bool = False
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                               Optional[EDLState]]:
     """Full training objective (train.py:222-241) on an ingested batch:
     clips (B, C, T, H, W), truths (B, N, 2), labels (B, N), gt_mask (B, N),
     scores (B, 2, T) (ANet: (B, 3, T)), ssl_clips, ssl_props (B, 3, 2), ssl_flags (B,).
-    Returns (cost, loss terms, new EDL state)."""
-    out = model(batch['clips'])
+    Returns (cost, loss terms, new EDL state).
+
+    fuse_ssl runs the main and SSL passes as one (`train_forward`), as
+    the JAX rule allows it (`opental_tpu/train/step.py:130-131`): only
+    while BN is frozen (with `model.freeze_bn: false` each pass draws its
+    own batch statistics), the SSL weight is positive and the batch has
+    SSL clips; otherwise the passes run one after the other."""
+    use_ssl = weights.ssl > 0 and 'ssl_clips' in batch
+    fused_trip = None
+    if fuse_ssl and use_ssl and getattr(model, 'freeze_bn', True):
+        out, fused_trip = model.train_forward(
+            batch['clips'], batch['ssl_clips'], batch['ssl_props'])
+    else:
+        out = model(batch['clips'])
     if loss_cfg.variant == 'anet':
         losses, new_edl = anet_multisegment_loss(
             loss_cfg, out, batch['truths'], batch['labels'],
@@ -129,9 +144,10 @@ def compute_losses(model: torch.nn.Module, loss_cfg: LossConfig,
                                       + losses['loss_prop_act'])
 
     loss_trip = cost.new_zeros(())
-    if weights.ssl > 0 and 'ssl_clips' in batch:
-        anchors, positives, negatives = model.ssl_forward(
-            batch['ssl_clips'], batch['ssl_props'])
+    if use_ssl:
+        anchors, positives, negatives = (
+            fused_trip if fused_trip is not None else model.ssl_forward(
+                batch['ssl_clips'], batch['ssl_props']))
         # the reference gates by the augmentation's success flag
         # (train.py:237); a batch weighs by its flagged fraction
         flag = batch['ssl_flags'].float().mean()
@@ -152,17 +168,19 @@ def global_norm(tensors) -> torch.Tensor:
 
 def train_step(state: TrainState, loss_cfg: LossConfig,
                weights: LossWeights, batch: Dict[str, torch.Tensor],
-               epoch: int) -> Dict[str, torch.Tensor]:
+               epoch: int, fuse_ssl: bool = False
+               ) -> Dict[str, torch.Tensor]:
     """One optimizer step on a batch already on the model's device.
     Updates `state` in place and returns the detached metrics (loss terms,
     cost, grad_norm) as device tensors: reading them is the caller's
-    synchronisation."""
+    synchronisation. fuse_ssl: as `compute_losses`."""
     model = state.model
     model.train()
     batch = device_ingest(batch)
     state.optimizer.zero_grad(set_to_none=True)
     cost, metrics, new_edl = compute_losses(model, loss_cfg, weights, batch,
-                                            state.edl_state, epoch)
+                                            state.edl_state, epoch,
+                                            fuse_ssl=fuse_ssl)
     cost.backward()
     for p in model.parameters():
         if p.grad is None:

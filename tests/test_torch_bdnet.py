@@ -86,9 +86,10 @@ def test_missing_key_raises(models):
 
 
 def test_extra_key_raises(models):
-    """A JAX leaf with no port counterpart raises (the transformer head
-    is not ported); the RPL radius, ported with the RPL heads, maps to
-    the pyramid's `rpl_radius`."""
+    """A JAX leaf with no port counterpart raises (an invented
+    `transformer_head`; the transformer conf head lives under
+    `conf_head`); the RPL radius, ported with the RPL heads, maps to the
+    pyramid's `rpl_radius`."""
     _, v, _, _, _ = models
     params = dict(v['params'])
     params['pyramid'] = dict(params['pyramid'], transformer_head={

@@ -216,3 +216,18 @@ def test_openset_modules_are_ported(cli):
     with pytest.raises(RuntimeError, match='CUDA'):
         mod.main([os.path.join(ROOT, a) if a.startswith('configs') else a
                   for a in OPENSET_CLIS[cli]])
+
+
+def test_single_device_modules_are_ported():
+    """The single-device slice's modules (export, streaming, profiling)
+    are part of the port, and so of the blocked-import check above; the
+    export CLI refuses to run without a card unless the CPU is asked
+    for."""
+    assert {'opental_torch.tools.export', 'opental_torch.infer.streaming',
+            'opental_torch.utils.profiling'} <= set(port_modules())
+    if torch.cuda.is_available():
+        return
+    from opental_torch.tools import export
+    with pytest.raises(RuntimeError, match='CUDA'):
+        export.main([os.path.join(ROOT, 'configs',
+                                  'thumos14_opental_final.yaml')])

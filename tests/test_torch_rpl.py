@@ -50,7 +50,7 @@ from opental_torch.config import load_config
 from opental_torch.losses import cls as tcls
 from opental_torch.losses import multisegment as tms
 from opental_torch.models.bdnet import BDNet
-from opental_torch.models.layers import RPLHead
+from opental_torch.models.layers import RPLHead, TransformerHead, Unit1D
 from opental_torch.tools import test as port_test
 from opental_torch.train.step import (LossWeights, TrainState,
                                       make_optimizer, train_step)
@@ -286,9 +286,18 @@ def test_factory_builds_the_baseline_configs():
         lcfg = factory.build_loss_config(cfg)
         assert (lcfg.cls_type, lcfg.rpl_gcpl) == ('rpl', gcpl)
         assert (lcfg.rpl_temperature, lcfg.rpl_weight_pl) == (1, 0.1)
+    # model.transformer: the conf head alone becomes a TransformerHead;
+    # with the RPL heads it is refused (the JAX pyramid reads RPL centers
+    # off the conf head)
+    cfg = load_config('configs/thumos14_opental_final.yaml',
+                      overrides={'model.transformer': True})
+    model = factory.build_model(cfg, frame_num=FRAME, crop_size=CROP)
+    pyr = model.coarse_pyramid_detection
+    assert isinstance(pyr.conf_head, TransformerHead)
+    assert isinstance(pyr.prop_conf_head, Unit1D)
     cfg = load_config('configs/thumos14_open_rpl.yaml',
                       overrides={'model.transformer': True})
-    with pytest.raises(NotImplementedError, match='transformer'):
+    with pytest.raises(ValueError, match='transformer'):
         factory.build_model(cfg)
 
 

@@ -58,7 +58,7 @@ Phases (any failure ends the run with a non-zero exit):
      frames: 2 flushes, 2 full forwards and padded tails), B1 launches
      against the scheduler's forwards, windows/s of the first and warm
      runs, the device's busy share, peak memory; the same videos one at
-     a time (testing.packed: false) in turns with the packed runs; one
+     a time (testing.packed: false) between two packed runs; one
      more packed run with its window gathers and forwards timed by CUDA
      events and its post-processing on the host clock
  17. f32, TF32 off, on 4 of those videos: packed vs per-video, and the
@@ -95,8 +95,8 @@ Phases (any failure ends the run with a non-zero exit):
  26. shared-backbone inference (testing.shared_backbone: 4-window spans
      of 648 frames, up to 48 per forward): run_test packed and per video
      over the packed videos, B1 launches against the span scheduler's
-     forwards, windows/s of the first run and warm runs in turns with the
-     default packed path (bf16), busy share, peak memory; B1 exactly
+     forwards, windows/s of the first run and a warm run, the default
+     packed path between two shared runs (bf16), busy share, peak memory; B1 exactly
      against its plain version on a shared forward's pool inputs and B4
      at the span shape, each timed against its bound; in f32 the
      interior windows' sliced features against a per-window backbone,
@@ -134,6 +134,29 @@ Phases (any failure ends the run with a non-zero exit):
      bf16
  35. utils.profiling: PhaseTimer around run_test, a torch.profiler trace
      file with device time, device_memory_stats
+ 36. the data mesh at world size 1 over NCCL (f32, TF32 off): the DDP
+     step (parallel.mesh, train.step.make_data_parallel) against two
+     plain train_steps at bs=1 and bs=8, and with freeze_bn: false
+     (global-batch BN) at bs=8: bit for bit where the plain step
+     reproduces itself, else the losses and statistics bit for bit and
+     the gradients within the plain steps' own gap
+     (`parallel.dryrun.assert_world_one_step`);
+     B1 and B2 under DDP, each == its plain
+     version on the step's pool calls; tools.train --use_mesh for 2
+     epochs, a checkpoint, a resume, then run_test on the mesh; the step
+     with and without DDP in turns (ms, peak memory)
+ 37. ranks of the mesh in processes (parallel.dryrun.Ranks): one per card
+     up to 4 over NCCL, or 2 sharing one card over gloo: the step at
+     global bs=8 == one process on the same batch (metrics rtol 2e-4,
+     each gradient by `parallel.dryrun.assert_same_grads`, parameters
+     rtol 1e-4 / atol 5e-5), with freeze_bn: false every rank's running
+     statistics equal; the step's time on each rank
+ 38. mesh inference on those ranks: run_test(mesh=...) in f32 (TF32 off)
+     on the packed videos (packed device ingest), the shared backbone and
+     fusion on the first four, == one device per proposal; at the shipped
+     settings (bf16, packed_batch 128) == one process at the ranks'
+     forward width (packed_batch 128 / ranks), and its windows/s beside
+     one process at the shipped settings (one, mesh, one)
 Phases 8 and 9 run with model.stem_pallas off and on. Then a `kernels`
 JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Weights and data are random, made from
@@ -176,6 +199,11 @@ from opental_torch.ops import (_build, boundary_pool,  # noqa: E402
                                boundary_pool_cuda, stem_pack, stem_pack_cuda)
 from opental_torch.openset import libmr  # noqa: E402
 from opental_torch.openset.openmax import weibull_fitting  # noqa: E402
+from opental_torch.parallel.dryrun import (  # noqa: E402
+    GRAD_ELEM_RTOL, GRAD_NORM_RTOL, Ranks, assert_same_step,
+    assert_world_one_step, bitwise_diffs, grad_gaps,
+    rank_backend, step_record)
+from opental_torch.parallel.mesh import make_mesh  # noqa: E402
 from opental_torch.infer.streaming import StreamingSession  # noqa: E402
 from opental_torch.tools import (eval_open, export,  # noqa: E402
                                  search_param, test_anet, test_cross_data,
@@ -190,9 +218,10 @@ from opental_torch.train.loop import (  # noqa: E402
 from opental_torch.train.loop import train as train_loop  # noqa: E402
 from opental_torch.train.step import (TrainState, compute_losses,  # noqa: E402
                                       device_ingest, global_norm,
-                                      make_anet_optimizer, make_optimizer,
+                                      make_anet_optimizer,
+                                      make_data_parallel, make_optimizer,
                                       train_step)
-from opental_torch.utils import profiling  # noqa: E402
+from opental_torch.utils import profiling, propmatch  # noqa: E402
 from opental_torch.utils.synthetic import (  # noqa: E402
     make_synthetic_anet_dataset, make_synthetic_dataset)
 
@@ -808,10 +837,10 @@ def loss_and_grads(model, cfg, batch, epoch: int = 11,
     return {k: v.detach() for k, v in terms.items()}, grads
 
 
-def capture_train_calls(model, cfg, batch):
-    """(x, segments, levels, g) of every boundary-pool call of one full
-    train step (g None where the output gets no gradient), in call
-    order."""
+def record_train_calls(fn):
+    """((x, segments, levels, g) of every boundary-pool call of fn(), a
+    train step, in call order (g None where the output gets no
+    gradient); fn()'s result)."""
     calls = []
     real = boundary_pool.boundary_max_pool_segmented
 
@@ -832,11 +861,19 @@ def capture_train_calls(model, cfg, batch):
     pyramid.boundary_max_pool_segmented = recording
     bdnet_mod.boundary_max_pool_segmented = recording
     try:
-        loss_and_grads(model, cfg, batch)
+        result = fn()
     finally:
         pyramid.boundary_max_pool_segmented = real
         bdnet_mod.boundary_max_pool_segmented = real
     torch.cuda.synchronize()
+    return calls, result
+
+
+def capture_train_calls(model, cfg, batch):
+    """(x, segments, levels, g) of every boundary-pool call of one full
+    train step (g None where the output gets no gradient), in call
+    order."""
+    calls, _ = record_train_calls(lambda: loss_and_grads(model, cfg, batch))
     return calls
 
 
@@ -1616,7 +1653,7 @@ def busy_share(fn, label: str) -> float:
 def timed_parts(cfg, label: str) -> dict:
     """One run_test(cfg), no profiler, with its parts timed: each window
     gather (`device_windows`) and each forward + decode
-    (`InferencePipeline.forward_decode`) as the span between two CUDA
+    (`InferencePipeline._forward_decode`) as the span between two CUDA
     events recorded around its launches on the compute stream (device
     time, including any gap in which the stream waited for the host),
     and each video's post-processing (`_finish_packed`) on the host clock
@@ -1625,7 +1662,7 @@ def timed_parts(cfg, label: str) -> dict:
     the wall."""
     spans = {'gather': [], 'forward': []}
     post = []
-    real = (pipeline_mod.device_windows, InferencePipeline.forward_decode,
+    real = (pipeline_mod.device_windows, InferencePipeline._forward_decode,
             InferencePipeline._finish_packed)
 
     def evented(key, fn):
@@ -1646,7 +1683,7 @@ def timed_parts(cfg, label: str) -> dict:
         post.append(time.perf_counter() - t0)
 
     pipeline_mod.device_windows = evented('gather', real[0])
-    InferencePipeline.forward_decode = evented('forward', real[1])
+    InferencePipeline._forward_decode = evented('forward', real[1])
     InferencePipeline._finish_packed = finish
     try:
         torch.cuda.synchronize()
@@ -1655,7 +1692,7 @@ def timed_parts(cfg, label: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        (pipeline_mod.device_windows, InferencePipeline.forward_decode,
+        (pipeline_mod.device_windows, InferencePipeline._forward_decode,
          InferencePipeline._finish_packed) = real
     out = {key: sum(a.elapsed_time(b) for a, b in ev) / 1e3
            for key, ev in spans.items()}
@@ -1672,22 +1709,9 @@ def timed_parts(cfg, label: str) -> dict:
 
 
 def pair_proposals(want, got):
-    """Pairs of two equal-length proposal lists: both sorted by (label,
-    -score); runs of near-tied scores (gap <= 1e-5) re-sorted by segment
-    (`opental_tpu/utils/propmatch.py` pair_proposals)."""
-    assert len(want) == len(got), (len(want), len(got))
-    key = lambda p: (p['label'], -p['score'])  # noqa: E731
-    want, got = sorted(want, key=key), sorted(got, key=key)
-    pairs, i = [], 0
-    while i < len(want):
-        j = i + 1
-        while (j < len(want) and want[j]['label'] == want[i]['label']
-               and want[j - 1]['score'] - want[j]['score'] <= 1e-5):
-            j += 1
-        seg = lambda p: tuple(p['segment'])  # noqa: E731
-        pairs += zip(sorted(want[i:j], key=seg), sorted(got[i:j], key=seg))
-        i = j
-    return pairs
+    """Pairs of two equal-length detection-JSON proposal lists
+    (`opental_torch.utils.propmatch.pair_proposals` by label)."""
+    return propmatch.pair_proposals(want, got, cls_key='label')
 
 
 def assert_same_json(want_path, got_path, label: str, rtol: float = 1e-4,
@@ -1722,7 +1746,8 @@ def phase_packed(root, dirs, videos):
     log(f'== phase 16: packed device ingest at full width (run_test, '
         f'shipped defaults: bf16, packed_batch {PACKED_BATCH}, '
         f'packed_frames {PACKED_FRAMES}) on {len(videos)} videos, and the '
-        f'same videos one at a time (testing.packed: false), in turns; '
+        f'same videos one at a time (testing.packed: false) between two '
+        f'packed runs; '
         f'{card_line()}')
     forwards, full, flushes, n_windows = ingest_plan(
         [(t, c, 0) for t, c, _ in videos.values()])
@@ -1746,7 +1771,9 @@ def phase_packed(root, dirs, videos):
         f'{peak:.2f} GiB')
     walls = {'packed': [], 'per_video': []}
     peaks = {}
-    for mode in ('per_video', 'packed', 'packed', 'per_video'):
+    # one warm run each after the first packed run (packed, per video,
+    # packed): two more in turns would add ~30 s to the script
+    for mode in ('per_video', 'packed'):
         path, wall, cnt, peak = timed_run(cfgs[mode])
         check_detection_json(path, videos)
         walls[mode].append(wall)
@@ -1754,7 +1781,7 @@ def phase_packed(root, dirs, videos):
         if mode == 'packed':
             assert cnt[0] == POOLS_PER_FORWARD * forwards, cnt
     for mode, ws in walls.items():
-        log(f'{mode}: warm runs in turns {[round(w, 3) for w in ws]} s, '
+        log(f'{mode}: warm run {[round(w, 3) for w in ws]} s, '
             f'{[round(n_windows / w, 2) for w in ws]} windows/s, peak '
             f'{peaks[mode]:.2f} GiB')
     share = busy_share(lambda: run_test(cfgs['packed']),
@@ -2766,7 +2793,8 @@ def phase_shared(root, dirs, videos, state_dict):
     log(f'== phase 26: shared-backbone inference (testing.shared_backbone: '
         f'{SPAN_GROUP}-window spans of {SPAN} frames, up to {SPAN_CHUNK} '
         f'spans per forward) at full width on the packed videos, per video '
-        f'and packed, in turns with the default packed path (bf16); '
+        f'and packed, the default packed path between two shared runs '
+        f'(bf16); '
         f'{card_line()}')
     plan = shared_plan([(t, c) for t, c, _ in videos.values()])
     base = packed_overrides(root, dirs)
@@ -2794,14 +2822,16 @@ def phase_shared(root, dirs, videos, state_dict):
         f'{n / wall:.2f} windows/s, B1 launches {cnt[0]}, peak '
         f'{peak:.2f} GiB')
     walls, peaks = {'default': [], 'shared': []}, {}
-    for mode in ('default', 'shared', 'shared', 'default'):
+    # one warm run each after the first shared run (shared, default,
+    # shared): two more in turns would add ~28 s to the script
+    for mode in ('default', 'shared'):
         path, wall, cnt, peak = timed_run(cfgs[mode])
         walls[mode].append(wall)
         peaks[mode] = max(peaks.get(mode, 0.0), peak)
         if mode == 'shared':
             assert cnt[0] == POOLS_PER_FORWARD * plan['packed'], cnt
     for mode, ws in walls.items():
-        log(f'{mode} packed: warm runs in turns {[round(w, 3) for w in ws]}'
+        log(f'{mode} packed: warm run {[round(w, 3) for w in ws]}'
             f' s, {[round(n / w, 2) for w in ws]} windows/s, peak '
             f'{peaks[mode]:.2f} GiB')
     share = busy_share(lambda: run_test(cfgs['shared']),
@@ -3721,6 +3751,348 @@ def phase_profiling(root, lengths) -> dict:
     return {'fwd': fwd, 'phases': phases['mean_seconds']}
 
 
+# ----------------------------------------------------------- the mesh
+
+MESH_BS = 8                       # the global batch of the mesh steps
+
+
+def mesh_world() -> int:
+    """Ranks of phases 37-38: one per card up to 4 with NCCL, or two
+    sharing the one card over gloo (NCCL refuses two ranks on a device)."""
+    n = torch.cuda.device_count()
+    return min(n, 4) if n >= 2 else 2
+
+
+def hold_world_one(want: dict, again: dict, got: dict, label: str):
+    """`parallel.dryrun.assert_world_one_step`, logged: returns (DDP gap,
+    plain gap)."""
+    bad, spread = bitwise_diffs(want, got), bitwise_diffs(want, again)
+    gap, plain_gap = (grad_gaps(want['grads'], r['grads'])[1][0]
+                      for r in (got, again))
+    log(f'{label}: entries not bit for bit equal, DDP vs plain {len(bad)} '
+        f'{bad[:4]}, plain vs plain {len(spread)} {spread[:4]}; gradient '
+        f'gaps (max |diff| / max) DDP {gap:.3g}, plain {plain_gap:.3g}')
+    assert_world_one_step(want, again, got, label)
+    return gap, plain_gap
+
+
+def hold_train_calls(calls, label: str) -> float:
+    """B1 (with its argmax) and B2 against their plain versions on a
+    train step's pool calls: the forward and the argmax exactly, dx at
+    rtol 1e-6 / atol 1e-6 (phase 3's rule). Returns the largest |diff|."""
+    err = 0.0
+    for i, c in enumerate(calls):
+        x, seg, levels, g = c['x'], c['seg'], c['levels'], c['g']
+        out, am = boundary_pool_cuda.boundary_max_pool_fwd(x, seg, True,
+                                                           levels)
+        want_out, want_am = boundary_pool.plain_forward_segmented(
+            x, seg, levels, True)
+        if not (torch.equal(out, want_out) and torch.equal(am.long(),
+                                                           want_am)):
+            raise AssertionError(f'B1 != plain on {label} call {i}')
+        if g is None:
+            continue
+        dx = boundary_pool_cuda.boundary_max_pool_bwd(am, g, x.shape[1],
+                                                      levels)
+        want_dx = boundary_pool.plain_backward_segmented(want_am, g, levels)
+        torch.testing.assert_close(dx, want_dx, rtol=1e-6, atol=1e-6,
+                                   msg=lambda m: f'B2 {label} {i}: {m}')
+        err = max(err, (dx - want_dx).abs().max().item())
+    return err
+
+
+def phase_mesh_one(cfg, root) -> dict:
+    log('== phase 36: the data mesh at world size 1 over NCCL (full '
+        'width, f32, TF32 off): the DDP step against the plain step, '
+        'tools.train --use_mesh, the step time with and without DDP '
+        f'in turns; {card_line()}')
+    mesh = make_mesh(device='cuda')
+    backend = torch.distributed.get_backend()
+    assert backend == 'nccl' and mesh.size == 1, (backend, mesh.size)
+    out = {'fwd': 0, 'bwd': 0, 'err': 0.0, 'gaps': []}
+    try:
+        cfg_bn = load_config(CONFIG, overrides={'model.freeze_bn': False})
+        for c, sizes, label in ((cfg, (1, MESH_BS), 'freeze_bn'),
+                                (cfg_bn, (MESH_BS,), 'freeze_bn false')):
+            model = train_model(c, FRAMES, CROP, 'cpu')
+            for bs in sizes:
+                batch = train_batch(bs, FRAMES, CROP, 60 + bs, 'cuda')
+                with tf32_off():
+                    want, again = (step_record(st, stepper(c, st, batch)())
+                                   for st in (new_state(c, copy.deepcopy(
+                                       model).cuda()) for _ in range(2)))
+                    ddp = make_data_parallel(
+                        new_state(c, copy.deepcopy(model).cuda()), mesh)
+                    reset_counts()
+                    calls, metrics = record_train_calls(
+                        stepper(c, ddp, batch))
+                    got = step_record(ddp, metrics)
+                    cnt = counts()
+                    del ddp
+                    assert cnt[:2] == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), cnt
+                    out['fwd'] += cnt[0]
+                    out['bwd'] += cnt[1]
+                    out['gaps'].append(hold_world_one(
+                        want, again, got, f'{label} bs {bs}'))
+                    out['err'] = max(out['err'], hold_train_calls(
+                        calls, f'DDP {label} bs {bs}'))
+                log(f'{label} bs {bs}: B1 {cnt[0]}, B2 {cnt[1]} launches '
+                    f'under DDP, each == its plain version on the step\'s '
+                    f'calls')
+                del calls
+            torch.cuda.empty_cache()
+
+        # tools.train --use_mesh: 2 epochs, a checkpoint, a resume
+        data = os.path.join(root, 'mesh_synth')
+        cfg_path = make_synthetic_dataset(data, n_train=3, n_test=1,
+                                          clip_length=FRAMES, crop_size=CROP,
+                                          spatial=112, seed=1)
+        reset_counts()
+        t0 = time.perf_counter()
+        state = train_loop(load_config(cfg_path, overrides={
+            'training.max_epoch': 2, 'training.use_mesh': True}),
+            max_steps_per_epoch=2)
+        assert state.mesh is not None and state.ddp is not None
+        ckdir = load_config(cfg_path).training['checkpoint_path']
+        checkpoint.save(ckdir, SAVE_AFTER_EPOCH, state)
+        train_cli.main([cfg_path, '--use_mesh', '--max_steps_per_epoch', '2',
+                        '--resume', '-1', '--max_epoch',
+                        str(SAVE_AFTER_EPOCH + 1)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = counts()[:2]
+        assert checkpoint.latest_epoch(ckdir) == SAVE_AFTER_EPOCH + 1
+        steps = torch.load(checkpoint.epoch_path(
+            ckdir, SAVE_AFTER_EPOCH + 1), map_location='cpu',
+            weights_only=True)['step']
+        with open(os.path.join(ckdir, 'metrics.jsonl')) as f:
+            recs = [json.loads(line) for line in f]
+        assert [r['step'] for r in recs] == list(range(1, steps + 1)), recs
+        assert all(math.isfinite(v) for r in recs for v in r.values())
+        assert (fwd, bwd) == (TRAIN_STEP_FWD * steps,
+                              TRAIN_STEP_BWD * steps), (fwd, bwd, steps)
+        out['fwd'] += fwd
+        out['bwd'] += bwd
+        reset_counts()
+        path = run_test(load_config(cfg_path), mesh=mesh)
+        out['fwd'] += counts()[0]
+        with open(path) as f:
+            results = json.load(f)['results']
+        n_props = sum(len(v) for v in results.values())
+        assert len(results) == 1 and n_props > 0, (len(results), n_props)
+        for p in (p for props in results.values() for p in props):
+            assert all(math.isfinite(v) for v in
+                       [p['score'], p['uncertainty'], *p['segment']]), p
+        log(f'tools.train --use_mesh: {steps} steps over epochs 1, 2 and '
+            f'(resumed) 11 in {wall:.1f} s, B1 {fwd}, B2 {bwd}; run_test '
+            f'on the mesh: {n_props} proposals')
+
+        # the step with and without DDP, PyTorch's defaults (TF32 convs)
+        model = train_model(cfg, FRAMES, CROP, 'cpu')
+        out['ms'] = {}
+        for bs in (1, MESH_BS):
+            batch = train_batch(bs, FRAMES, CROP, 80 + bs, 'cuda')
+            plain = new_state(cfg, copy.deepcopy(model).cuda())
+            ddp = make_data_parallel(new_state(
+                cfg, copy.deepcopy(model).cuda()), mesh)
+            res = in_turns({'plain': stepper(cfg, plain, batch),
+                            'ddp': stepper(cfg, ddp, batch)}, 3,
+                           step_ms_peak)
+            out['ms'][bs] = {k: [round(float(x), 3) for x in v]
+                             for k, v in res.items()}
+            ratio = res['ddp'][0] / res['plain'][0]
+            log(f'bs {bs} step (ms, peak GiB with both states resident), '
+                f'in turns: plain {out["ms"][bs]["plain"]}, DDP '
+                f'{out["ms"][bs]["ddp"]} ({ratio:.3f} x); {card_line()}')
+            del plain, ddp
+            torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    return out
+
+
+def mesh_train_job(c, model, batch_np):
+    return ('train', dict(model=model, loss_cfg=factory.build_loss_config(c),
+                          weights=factory.build_loss_weights(c),
+                          batch=batch_np, epochs=[11], wd=1e-3))
+
+
+def mesh_test_cfg(root, dirs, extra, info='packed_info.csv'):
+    return dict(packed_overrides(root, dirs, info), **extra)
+
+
+def phase_mesh_ranks(cfg, root, dirs, videos) -> dict:
+    world = mesh_world()
+    backend = rank_backend('cuda', world)
+    log(f'== phase 37-38: {world} ranks over {backend} on '
+        f'{torch.cuda.device_count()} card(s): the step at global bs '
+        f'{MESH_BS} (f32, TF32 off) == one process (its gradients too), '
+        f'freeze_bn false too; mesh run_test (f32, TF32 off: packed on the '
+        f'{len(videos)} packed videos, shared and fused on the first '
+        f'{F32_SUBSET}) == one device per proposal; mesh run_test at the '
+        f'shipped settings (bf16, packed_batch {PACKED_BATCH}) == one '
+        f'process at the ranks\' forward width (packed_batch '
+        f'{PACKED_BATCH // world}), and timed beside one process at the '
+        f'shipped settings (one, mesh, one); the step time; {card_line()}')
+    cfg_bn = load_config(CONFIG, overrides={'model.freeze_bn': False})
+    batch_np = {k: v.numpy() for k, v in train_batch(
+        MESH_BS, FRAMES, CROP, 70, 'cpu').items()}
+    models = {True: train_model(cfg, FRAMES, CROP, 'cpu'),
+              False: train_model(cfg_bn, FRAMES, CROP, 'cpu')}
+    f32 = {'model.compute_dtype': 'float32', 'testing.packed_batch': 32}
+    legs = {'packed': ('packed_info.csv', f32),
+            'shared': ('subset_info.csv', dict(
+                f32, **{'testing.shared_backbone': True})),
+            'fused': ('subset_info.csv', dict(f32, **{'testing.fusion': True})),
+            # the shipped settings (bf16, packed_batch 128); one process
+            # also at the ranks' forward width
+            'bf16': ('packed_info.csv', {}),
+            'bf16_narrow': ('packed_info.csv', {
+                'testing.packed_batch': PACKED_BATCH // world})}
+
+    def test_cfg(mode, tag):
+        info, extra = legs[mode]
+        return mesh_test_cfg(root, dirs, dict(
+            extra, **{'testing.output_json': f'{tag}_{mode}.json'}), info)
+
+    # one process first: the f32 references. A metric is held at rtol 2e-4, or at 3 x its gap between the batch
+    # and its rows rotated by one in one process where that is larger:
+    # float summation order alone moves a train-mode-BN step's grad norm
+    # by up to 7e-4 at the seeded init (CPU, frame 128)
+    want, rtol, paths, rotated = {}, {}, {}, {}
+    with tf32_off():
+        for fb, c in ((True, cfg), (False, cfg_bn)):
+            recs = []
+            for rows in (slice(None), np.roll(np.arange(MESH_BS), 1)):
+                st = new_state(c, copy.deepcopy(models[fb]).cuda())
+                recs.append(step_record(st, stepper(c, st, {
+                    k: torch.from_numpy(v[rows]).cuda()
+                    for k, v in batch_np.items()})()))
+                del st
+            want[fb] = recs[0]
+            # the gradients' own spread under a change of summation order
+            rotated[fb] = grad_gaps(recs[0]['grads'], recs[1]['grads'])
+            a, b = recs[0]['metrics'][0], recs[1]['metrics'][0]
+            rtol[fb] = {k: max(2e-4, 3 * abs(b[k] - a[k])
+                               / max(abs(a[k]), 1e-30)) for k in a}
+        walls = []
+        for mode in ('packed', 'shared', 'fused'):
+            paths[mode], wall, _, _ = timed_run(load_config(
+                CONFIG, overrides=test_cfg(mode, 'one')))
+            walls.append(wall)
+    # bf16 at PyTorch's defaults: one process at the ranks' forward width,
+    # then at the shipped width (the first of the timed runs: one, mesh,
+    # one)
+    for mode in ('bf16_narrow', 'bf16'):
+        paths[mode], wall, _, _ = timed_run(load_config(
+            CONFIG, overrides=test_cfg(mode, 'one')))
+    one_walls = [wall]
+    torch.cuda.empty_cache()
+
+    jobs = [('backends', {'exact': True}),
+            mesh_train_job(cfg, models[True], batch_np),
+            mesh_train_job(cfg_bn, models[False], batch_np)]
+    jobs += [('run_test', {'config': CONFIG, 'overrides': test_cfg(mode,
+                                                                   'mesh')})
+             for mode in ('packed', 'shared', 'fused')]
+    # the shipped settings twice: held, then timed
+    jobs += [('backends', {'exact': False})] + [
+        ('run_test', {'config': CONFIG, 'overrides': test_cfg('bf16', tag)})
+        for tag in ('mesh', 'mesh_timed')]
+    jobs += [('time_train', jobs[1][1])]
+    t0 = time.perf_counter()
+    got = Ranks(world, jobs, device='cuda').results(timeout=900)
+    ranks_wall = time.perf_counter() - t0
+    _, wall, _, _ = timed_run(load_config(CONFIG, overrides=test_cfg(
+        'bf16', 'one_again')))
+    one_walls.append(wall)
+
+    out = {'fwd': 0, 'bwd': 0}
+    for r, res in enumerate(got):
+        for i, fb in ((1, True), (2, False)):
+            assert_same_step(want[fb], res[i], f'rank {r} freeze_bn {fb}',
+                             rtol[fb])
+            assert res[i]['launches'] == (TRAIN_STEP_FWD, TRAIN_STEP_BWD), \
+                res[i]['launches']
+            out['fwd'] += res[i]['launches'][0]
+            out['bwd'] += res[i]['launches'][1]
+        for k, x in res[2]['buffers'].items():
+            if k.endswith(('running_mean', 'running_var')):
+                assert torch.equal(x, got[0][2]['buffers'][k]), (r, k)
+                torch.testing.assert_close(
+                    x, want[False]['buffers'][k], rtol=1e-4, atol=1e-5,
+                    msg=lambda m: f'rank {r} {k}: {m}')
+        out['fwd'] += sum(res[j]['launches'] for j in (3, 4, 5, 7, 8))
+    worst = {}
+    for j, mode in ((3, 'packed'), (4, 'shared'), (5, 'fused')):
+        worst[mode] = assert_same_json(paths[mode], got[0][j]['path'],
+                                       f'mesh {mode}')
+    # bf16: each rank's forward is PACKED_BATCH / world windows wide;
+    # one process at that width takes the same windows per forward
+    worst['bf16'] = assert_same_json(paths['bf16_narrow'], got[0][7]['path'],
+                                     'mesh bf16 vs one process at the '
+                                     'ranks\' forward width')
+    n_props = {}
+    for tag, path in (('one', paths['bf16']),
+                      ('one_narrow', paths['bf16_narrow']),
+                      ('mesh', got[0][7]['path'])):
+        with open(path) as f:
+            n_props[tag] = sum(len(v) for v in json.load(f)[
+                'results'].values())
+    n_windows = ingest_plan([(t, c, 0) for t, c, _ in videos.values()])[3]
+    mesh_wall = got[0][8]['seconds']
+    per_rank_ms = [round(res[9]['ms'], 3) for res in got]
+    peaks = [res[9]['peak_gib'] for res in got]
+    st = new_state(cfg, copy.deepcopy(models[True]).cuda())
+    one_ms = time_ms(stepper(cfg, st, {k: torch.from_numpy(v).cuda()
+                                       for k, v in batch_np.items()}),
+                     3, warmup=2)
+    del st
+    torch.cuda.empty_cache()
+    gaps = {fb: {k: round(abs(got[0][i]['metrics'][0][k] - want[fb][
+        'metrics'][0][k]) / max(abs(want[fb]['metrics'][0][k]), 1e-30), 9)
+        for k in ('cost', 'grad_norm')} for i, fb in ((1, True), (2, False))}
+    g_gaps = {fb: [grad_gaps(want[fb]['grads'], res[i]['grads'])
+                   for res in got] for i, fb in ((1, True), (2, False))}
+    log(f'{world} ranks: the step == one process (metrics rtol 2e-4 or 3 x '
+        f'the rotated batch\'s gap: {rtol}; relative gaps of cost and '
+        f'grad norm {gaps}; gradients, per rank ((of a tensor\'s norm, '
+        f'name), (of its largest element, name)) {g_gaps} within '
+        f'{GRAD_NORM_RTOL} / {GRAD_ELEM_RTOL} (one process\'s step on the '
+        f'batch\'s rows rotated by one: {rotated}); parameters rtol 1e-4 / '
+        f'atol 5e-5), freeze_bn false too, every rank\'s running '
+        f'statistics equal; mesh run_test == one device '
+        f'per proposal, largest relative score difference {worst} (bf16: '
+        f'against one process at packed_batch {PACKED_BATCH // world}; '
+        f'proposals one process at {PACKED_BATCH} / at '
+        f'{PACKED_BATCH // world} / mesh {n_props}); B1 '
+        f'launches {out["fwd"]}, B2 {out["bwd"]} over the ranks; the ranks '
+        f'ran in {ranks_wall:.1f} s (start-up included), their run_tests '
+        f'in {[round(got[0][j]["seconds"], 1) for j in (3, 4, 5)]} s, one '
+        f'process\'s in {[round(w, 1) for w in walls]} s')
+    log(f'step at global bs {MESH_BS} (PyTorch\'s defaults): {world} ranks '
+        f'{per_rank_ms} ms a step, peaks {peaks} GiB; one process '
+        f'{one_ms:.3f} ms; bf16 packed run_test (shipped settings) over '
+        f'{n_windows} windows: '
+        f'one process {[round(w, 3) for w in one_walls]} s '
+        f'({[round(n_windows / w, 2) for w in one_walls]} windows/s) '
+        f'around the mesh run {mesh_wall:.3f} s '
+        f'({n_windows / mesh_wall:.2f} windows/s); {card_line()}')
+    out.update({'world': world, 'backend': backend, 'step_ms': per_rank_ms,
+                'one_ms': one_ms, 'peaks': peaks,
+                'windows_s': {'one': [n_windows / w for w in one_walls],
+                              'mesh': n_windows / mesh_wall}})
+    return out
+
+
+def run_mesh_slice(cfg, root, dirs, videos) -> dict:
+    """Phases 36-38; returns their launch counts and numbers."""
+    one = phase_mesh_one(cfg, root)
+    ranks = phase_mesh_ranks(cfg, root, dirs, videos)
+    return {'one': one, 'ranks': ranks, 'fwd': one['fwd'] + ranks['fwd'],
+            'bwd': one['bwd'] + ranks['bwd']}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false: this run '
@@ -3784,8 +4156,12 @@ def main() -> int:
             cfg, state_dict, root, lengths, np.load(os.path.join(
                 dirs['rgb'], f'video_packed_{len(PACKED_LENGTHS) - 1:03d}'
                 '.npy')))
+        mesh = run_mesh_slice(cfg, root, dirs, videos)
         shutil.rmtree(dirs['rgb'])
         shutil.rmtree(dirs['flow'])
+        launches += mesh['fwd']
+        train_bwd_mesh = mesh['bwd']
+        bwd_err = max(bwd_err, mesh['one']['err'])
         launches += packed['launches'] + fused[False]['counts'][0] \
             + fused[True]['counts'][0] + thr_launches \
             + shared['launches'] + shared['stem_b1']
@@ -3816,7 +4192,7 @@ def main() -> int:
         cross = phase_cross_search(root, lengths)
         launches += rpl['infer'] + openmax['launches'] + cross['launches'] \
             + single['fwd']
-        train_bwd += single['bwd']
+        train_bwd += single['bwd'] + train_bwd_mesh
         v1_launches += single['v1']
         phase_train_speed(cfg)
         phase_throughput(state_dict, root, lengths)
@@ -3850,14 +4226,24 @@ def main() -> int:
         f'{single["export"]["runs"]}; streaming windows/s '
         f'{single["stream"]["windows_s"]}; PhaseTimer '
         f'{single["profiling"]["phases"]}')
+    one, ranks = mesh['one'], mesh['ranks']
+    log(f'mesh slice: DDP / plain step at world size 1 (ms, peak GiB) '
+        f'{one["ms"]}; {ranks["world"]} ranks over {ranks["backend"]}: '
+        f'step {ranks["step_ms"]} ms (one process {ranks["one_ms"]:.3f}), '
+        f'peaks {ranks["peaks"]} GiB, bf16 packed windows/s (shipped '
+        f'settings) one process '
+        f'{[round(w, 2) for w in ranks["windows_s"]["one"]]}, mesh '
+        f'{ranks["windows_s"]["mesh"]:.2f}')
     log(f'boundary_max_pool_fwd launches: {launches} in the inference runs '
         f'(per-video set, packed, fused off and on, calibration, shared '
         f'packed and per video and with stem_pallas, RPL / GCPL run_test, '
         f'OpenMax, cross-data, search_param; ANet: first, fused, binary, '
         f'calibration; phases 30-35: the fused, remat and transformer '
         f'steps and forwards, the exported programs, streaming, the '
-        f'profiled run_test), {train_fwd} in the training runs (THUMOS, '
-        f'ANet, RPL, GCPL); B2 {train_bwd} (with phases 30-32); stem pack '
+        f'profiled run_test; phases 36-38: the mesh steps, training and '
+        f'run_tests on every rank), {train_fwd} in the training runs '
+        f'(THUMOS, ANet, RPL, GCPL); B2 {train_bwd} (with phases 30-32 and '
+        f'36-37); stem pack '
         f'v2 {v2_launches} in the stem_pallas inference runs (per-video '
         f'set, fused, shared, the exported programs), v1 {v1_launches} in '
         f'the stem_pallas training run and the remat steps; B4 at C = 2 '

@@ -50,6 +50,7 @@ from opental_torch.data.prefetch import prefetch_items
 from opental_torch.infer.decode import (DecodedWindows, decode_windows,
                                         fuse_streams)
 from opental_torch.ops.nms import soft_nms_device, soft_nms_numpy
+from opental_torch.parallel.mesh import Mesh, gather_rows
 
 
 def window_offsets(sample_count: int, clip_length: int,
@@ -232,6 +233,18 @@ def _slice_decoded(dec: DecodedWindows, lo: int, hi: int
     return DecodedWindows(*(None if a is None else a[lo:hi] for a in dec))
 
 
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x with zero rows appended up to n rows."""
+    if x.shape[0] == n:
+        return x
+    return torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])])
+
+
+def _gather_decoded(mesh: Mesh, dec: DecodedWindows) -> DecodedWindows:
+    return DecodedWindows(*(None if a is None else gather_rows(mesh, a)
+                            for a in dec))
+
+
 def _new_video(name, offsets, fps, **extra) -> Dict[str, Any]:
     """Scheduler record of an open video: decoded rows arrive in `got`
     until `need` reaches 0."""
@@ -272,6 +285,17 @@ class InferencePipeline:
     negative distances). shared_backbone=True runs one backbone pass per
     span of `shared_group` windows, at most `shared_max_groups` spans per
     forward (the JAX package's values).
+
+    mesh (`parallel.mesh.make_mesh()`): every rank runs the same host
+    plan and stages the same frame buffers (the weights and frames are
+    replicated), keeps its contiguous share of each forward's windows
+    (of each shared forward's spans), padded with zero rows to a
+    multiple of the mesh size, and gathers the decoded rows back in
+    order (`_sharded`), so post-processing sees the single-device rows
+    and every rank returns the same proposals. The device is the
+    mesh's. As in the JAX package, RGB + flow fusion on a mesh needs
+    device ingest, the shared backbone is single-stream on a mesh, and
+    every window batch (`max_batch`) divides over the mesh.
     """
 
     shared_group = 4
@@ -287,7 +311,20 @@ class InferencePipeline:
                  device_nms: bool = False, device_post: bool = True,
                  n_candidates: int = 2048, device_ingest: bool = True,
                  shared_backbone: bool = False,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            if flow_model is not None and not device_ingest:
+                raise ValueError('mesh + two-stream fusion requires '
+                                 'device_ingest (twin-buffer ingest)')
+            if flow_model is not None and shared_backbone:
+                raise ValueError('shared_backbone fusion runs are '
+                                 'single-device')
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f'device {device} is not the mesh\'s '
+                                 f'{mesh.device}')
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.flow_model = (None if flow_model is None
@@ -318,16 +355,65 @@ class InferencePipeline:
             score_func='dirichlet' if self.use_edl else 'softmax',
             evidence=self.evidence, negate_conf=self.use_gcpl)
 
-    def forward_decode(self, clips: torch.Tensor,
-                       flow_clips: Optional[torch.Tensor] = None
-                       ) -> DecodedWindows:
-        """(W, C, T, H, W) clips (and the flow stream's) -> decoded
-        windows, on the device."""
+    def _check_batch(self, max_batch: int) -> None:
+        """A window batch divides over the mesh (JAX: `pipeline.py:378`,
+        `:729`)."""
+        if self.mesh is not None and max_batch % self.mesh.size:
+            raise ValueError(f'max_batch {max_batch} must divide over the '
+                             f'mesh of {self.mesh.size}')
+
+    def _sharded(self, decode, rows: Sequence[Any], per_row: int = 1
+                 ) -> DecodedWindows:
+        """decode(*rows) of n rows (the leading axis of each tensor in
+        `rows`; other entries pass as they are), decoding per_row windows
+        per row. On a mesh each rank decodes its contiguous share of the
+        rows, padded with zero rows (zero frames: frames-valid 0) to a
+        multiple of the mesh size, and the decoded windows are gathered
+        back in rank order."""
+        if self.mesh is None:
+            return decode(*rows)
+        n = next(r.shape[0] for r in rows
+                 if isinstance(r, torch.Tensor) and r.dim())
+        w = self.mesh.size
+        per = -(-n // w)
+        lo = self.mesh.rank * per
+        local = [_pad_rows(r, per * w)[lo:lo + per]
+                 if isinstance(r, torch.Tensor) and r.dim() else r
+                 for r in rows]
+        with torch.inference_mode():
+            return _slice_decoded(_gather_decoded(self.mesh,
+                                                  decode(*local)),
+                                  0, n * per_row)
+
+    def _forward_decode(self, clips: torch.Tensor,
+                        flow_clips: Optional[torch.Tensor] = None
+                        ) -> DecodedWindows:
         with torch.inference_mode():
             out = self.model(clips)
             if flow_clips is not None:
                 out = fuse_streams(out, self.flow_model(flow_clips))
             return self._decode(out)
+
+    def forward_decode(self, clips: torch.Tensor,
+                       flow_clips: Optional[torch.Tensor] = None
+                       ) -> DecodedWindows:
+        """(W, C, T, H, W) clips (and the flow stream's) -> decoded
+        windows, on the device; on a mesh split over its ranks."""
+        return self._sharded(self._forward_decode, [clips, flow_clips])
+
+    def windows_decode(self, bufs: Sequence[torch.Tensor],
+                       offsets: torch.Tensor,
+                       frames_valid: Sequence[Union[int, torch.Tensor]]
+                       ) -> DecodedWindows:
+        """Windows at `offsets` (W,) gathered from each stream's staged
+        uint8 buffer (`device_windows`, with that stream's frames-valid:
+        a scalar or (W,)) through forward + decode; on a mesh each rank
+        gathers only its share of the windows."""
+        def decode(offs, *fvs):
+            return self._forward_decode(*[
+                device_windows(buf, offs, fv, self.clip_length)
+                for buf, fv in zip(bufs, fvs)])
+        return self._sharded(decode, [offsets, *frames_valid])
 
     @property
     def span(self) -> int:
@@ -345,16 +431,20 @@ class InferencePipeline:
         scalar, or (b,) for spans of several videos) zeroed, through the
         backbone once; each window's features are sliced from its span at
         `local` (b, k) and run through the pyramid and heads. Returns the
-        decode of the b * k windows, span-major."""
-        outs = []
-        with torch.inference_mode():
-            for model, buf in zip((self.model, self.flow_model), bufs):
-                feats = model.backbone_features(device_windows(
-                    buf, bases, frames_valid, self.span))
-                outs.append(model.detect_from_features(
-                    window_features(feats, local, self.clip_length)))
-            out = outs[0] if len(outs) == 1 else fuse_streams(*outs)
-            return self._decode(out)
+        decode of the b * k windows, span-major; on a mesh each rank runs
+        its share of the spans."""
+        def decode(bases, local, frames_valid):
+            outs = []
+            with torch.inference_mode():
+                for model, buf in zip((self.model, self.flow_model), bufs):
+                    feats = model.backbone_features(device_windows(
+                        buf, bases, frames_valid, self.span))
+                    outs.append(model.detect_from_features(
+                        window_features(feats, local, self.clip_length)))
+                out = outs[0] if len(outs) == 1 else fuse_streams(*outs)
+                return self._decode(out)
+        return self._sharded(decode, [bases, local, frames_valid],
+                             per_row=local.shape[1])
 
     def _fusion(self, flow_data) -> bool:
         """Whether a video runs fused; a fusion pipeline needs its flow
@@ -388,6 +478,7 @@ class InferencePipeline:
                                                   self.crop_size))
         offsets = window_offsets(sample_count, self.clip_length,
                                  self.stride)
+        self._check_batch(max_batch)
         chunks = range(0, len(offsets), max_batch)
         if self.device_ingest:
             offs = self._to_device(np.asarray(offsets, np.int64))
@@ -399,16 +490,16 @@ class InferencePipeline:
                                                   s.shape[0]),
                                     device=self.device),
                        min(s.shape[0], sample_count)) for s in streams]
-            batches = ([device_windows(buf, offs[i:i + max_batch], valid,
-                                       self.clip_length)
-                        for buf, valid in staged] for i in chunks)
+            bufs = [buf for buf, _ in staged]
+            valids = [valid for _, valid in staged]
+            parts = [self.windows_decode(bufs, offs[i:i + max_batch],
+                                         valids) for i in chunks]
         else:
             stacked = [stack_windows(s, offsets, self.clip_length)
                        for s in streams]
-            batches = ([self._to_device(w[i:i + max_batch]).permute(
-                0, 4, 1, 2, 3).contiguous() for w in stacked]
-                for i in chunks)
-        parts = [self.forward_decode(*clips) for clips in batches]
+            parts = [self.forward_decode(*[self._to_device(
+                w[i:i + max_batch]).permute(0, 4, 1, 2, 3).contiguous()
+                for w in stacked]) for i in chunks]
         return _cat_decoded(parts), offsets
 
     def run_video(self, data: np.ndarray, sample_count: int,
@@ -508,6 +599,7 @@ class InferencePipeline:
         if self.device_ingest:
             return self.run_videos_ingest(videos, max_batch=max_batch,
                                           frames_capacity=frames_capacity)
+        self._check_batch(max_batch)
         fusion = self.flow_model is not None
         pending: List[Dict[str, Any]] = []   # FIFO of open videos
         queues: List[List[np.ndarray]] = [[] for _ in range(
@@ -605,6 +697,7 @@ class InferencePipeline:
         the flow frames fifth for fusion, consumed lazily. Returns
         {name: proposals}.
         """
+        self._check_batch(max_batch)
         fusion = self.flow_model is not None
         clip, stride = self.clip_length, self.stride
         cuda = self.device.type == 'cuda'
@@ -703,13 +796,11 @@ class InferencePipeline:
                         plan[key].record_stream(current)
                 vids, vi = plan['vids'], 0
                 for i in range(0, plan['offs'].shape[0], max_batch):
-                    offs = plan['offs'][i:i + max_batch]
-                    clips = [device_windows(plan[f'buf{j}'], offs,
-                                            plan[f'fv{j}'][i:i + max_batch],
-                                            clip)
-                             for j in range(n_streams)]
-                    dec = self.forward_decode(*clips)
-                    del clips
+                    dec = self.windows_decode(
+                        [plan[f'buf{j}'] for j in range(n_streams)],
+                        plan['offs'][i:i + max_batch],
+                        [plan[f'fv{j}'][i:i + max_batch]
+                         for j in range(n_streams)])
                     vi = _route_rows(vids, dec,
                                      max(0, min(max_batch, plan['n'] - i)),
                                      vi)

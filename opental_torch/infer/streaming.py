@@ -51,6 +51,11 @@ class StreamingSession:
         if pipe.flow_model is not None:
             raise ValueError('streaming is single-stream (no RGB + flow '
                              'fusion)')
+        if pipe.mesh is not None and max_batch % pipe.mesh.size:
+            # each forward's windows split evenly over the mesh
+            # (`opental_tpu/infer/streaming.py:55-57`)
+            raise ValueError(f'max_batch {max_batch} must be a multiple of '
+                             f'the mesh size {pipe.mesh.size}')
         self.pipe = pipe
         self.sample_fps = sample_fps
         self.max_batch = max_batch

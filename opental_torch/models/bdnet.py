@@ -27,6 +27,8 @@ from opental_torch.models.pyramid import (CoarsePyramid,
 from opental_torch.ops.boundary_pool import boundary_max_pool_segmented
 
 SSL_SCALES = (1.0, 4.0, 4.0)
+# out_dict entries the model shares across the batch (no batch axis)
+UNBATCHED_OUTPUTS = ('priors', 'cls_ctr', 'prop_cls_ctr', 'rpl_radius')
 
 
 def evidence_fn(logit: torch.Tensor, evidence: str = 'exp') -> torch.Tensor:
@@ -186,8 +188,7 @@ class BDNet(nn.Module):
         trip = [ssl_half('start', 'end'),
                 ssl_half('start_loc_prop', 'end_loc_prop'),
                 ssl_half('start_conf_prop', 'end_conf_prop')]
-        unbatched = ('priors', 'cls_ctr', 'prop_cls_ctr', 'rpl_radius')
-        out = {k: (v[:b] if k not in unbatched
+        out = {k: (v[:b] if k not in UNBATCHED_OUTPUTS
                    and isinstance(v, torch.Tensor) else v)
                for k, v in full.items()}
         if self.use_edl:

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from opental_torch.ops import stem_pack
+from opental_torch.parallel.mesh import all_reduce_sum
 
 GN_EPS = 1e-5   # torch GroupNorm default (reference nn.GroupNorm(32, C))
 BN_EPS = 1e-3   # reference BatchNorm3d(eps=0.001) in the I3D backbone
@@ -72,6 +73,24 @@ def _recomputing() -> Iterator[None]:
         _BN_RECOMPUTING = prev
 
 
+_BN_MESH = None
+
+
+@contextlib.contextmanager
+def global_batch_stats(mesh) -> Iterator[None]:
+    """While open, a train-mode `FrozenBatchNorm` with freeze_stats off
+    takes its statistics over the global batch of `mesh` (a
+    `parallel.mesh.Mesh`; None: this process's batch), as the JAX step
+    does on a sharded batch. Keep it open over the backward too: a
+    checkpointed block's recompute reduces the same sums again."""
+    global _BN_MESH
+    prev, _BN_MESH = _BN_MESH, mesh
+    try:
+        yield
+    finally:
+        _BN_MESH = prev
+
+
 def bn_recompute():
     """`context_fn` of `torch.utils.checkpoint.checkpoint`: the first
     pass runs as it is, the recompute in the backward with
@@ -91,7 +110,12 @@ class FrozenBatchNorm(nn.Module):
     the biased batch statistics, taken in float32 in the centered two-pass
     form, and EMA-updates the running statistics in place with the
     unbiased batch variance (momentum 0.01, torch BatchNorm's train mode);
-    in eval mode it uses the running statistics.
+    in eval mode it uses the running statistics. Under
+    `global_batch_stats(mesh)` the batch is the mesh's global batch: the
+    sums of x and the count, then the sum of (x - mean)^2, are
+    all-reduced (differentiably) over the ranks, so every rank
+    normalizes by, and keeps, the same statistics (the count is a
+    float32, exact up to 2^24 values per channel).
     """
 
     def __init__(self, features: int, eps: float = BN_EPS,
@@ -114,20 +138,30 @@ class FrozenBatchNorm(nn.Module):
         if self.training and not self.freeze_stats:
             xf = x.float()
             axes = (0,) + tuple(range(2, x.dim()))
-            mean = xf.mean(dim=axes)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            # sums and the count, over the mesh's global batch when one
+            # is set (`global_batch_stats`); the same division either way,
+            # so a mesh of one gives the local statistics bit for bit
+            count = torch.full((1,), x.numel() // x.shape[1],
+                               dtype=torch.float32, device=x.device)
+            sums = torch.cat([xf.sum(dim=axes), count])
+            if _BN_MESH is not None:
+                sums = all_reduce_sum(_BN_MESH, sums)
+            n = sums[-1]
+            mean = sums[:-1] / n
             # centered two-pass variance: E[x^2] - E[x]^2 cancels for
             # large-mean activations and can go negative; this cannot
-            shape = (1, -1) + (1,) * (x.dim() - 2)
-            var = (xf - mean.view(shape)).square().mean(dim=axes).clamp_min(
-                0.0)
-            n = x.numel() // x.shape[1]
+            sq = (xf - mean.view(shape)).square().sum(dim=axes)
+            if _BN_MESH is not None:
+                sq = all_reduce_sum(_BN_MESH, sq)
+            var = (sq / n).clamp_min(0.0)
             # the backward's recompute (`bn_recompute`) leaves them
             if not _BN_RECOMPUTING:
                 with torch.no_grad():
                     m = self.momentum
                     self.running_mean.mul_(1 - m).add_(m * mean.detach())
                     self.running_var.mul_(1 - m).add_(
-                        m * (var.detach() * (n / max(n - 1, 1))))
+                        m * (var.detach() * (n / (n - 1).clamp_min(1.0))))
         else:
             mean = self.running_mean.float()
             var = self.running_var.float()

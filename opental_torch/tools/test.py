@@ -24,6 +24,7 @@ from opental_torch.config import Config, build_arg_parser, \
 from opental_torch.data.thumos import get_class_index_map, get_video_info
 from opental_torch.infer.pipeline import (InferencePipeline, infer_videos,
                                           packed_frames, proposals_to_json)
+from opental_torch.parallel.mesh import Mesh
 
 
 def resolve_checkpoint(path: str) -> str:
@@ -72,12 +73,14 @@ def inference_dtype(cfg: Config) -> torch.dtype:
 
 
 def build_pipeline(cfg: Config,
-                   device: Optional[Union[str, torch.device]] = None
+                   device: Optional[Union[str, torch.device]] = None,
+                   mesh: Optional[Mesh] = None
                    ) -> Tuple[InferencePipeline, dict, dict]:
     """The inference pipeline a config describes (with the 2-channel flow
     BDNet and `testing.flow_checkpoint_path` under `testing.fusion`),
-    the test video infos and the class names."""
-    dev = resolve_device(device)
+    the test video infos and the class names. With a mesh the pipeline
+    splits each forward's windows over its ranks, on the mesh's device."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     te = cfg.testing
     clip_length = cfg.get_path('dataset.testing.clip_length', 256)
     crop_size = cfg.get_path('dataset.testing.crop_size', 96)
@@ -109,7 +112,8 @@ def build_pipeline(cfg: Config,
         device_ingest=te.get('device_ingest', True),
         # testing.shared_backbone (default off): one backbone pass per
         # span of 4 windows, as the JAX CLI reads it (tools/test.py:130)
-        shared_backbone=te.get('shared_backbone', False), device=dev)
+        shared_backbone=te.get('shared_backbone', False), device=dev,
+        mesh=mesh)
     video_infos = get_video_info(
         cfg.get_path('dataset.testing.video_info_path'))
     _, idx_to_class = get_class_index_map(
@@ -118,13 +122,16 @@ def build_pipeline(cfg: Config,
 
 
 def run_test(cfg: Config, max_videos: Optional[int] = None,
-             device: Optional[Union[str, torch.device]] = None) -> str:
+             device: Optional[Union[str, torch.device]] = None,
+             mesh: Optional[Mesh] = None) -> str:
     """Detection JSON of every test video; returns its path. With
     `testing.fusion` the RGB frames come from `testing.rgb_data_path` and
     the flow frames from `testing.flow_data_path`
-    (`opental_tpu/tools/test.py:142-147`)."""
+    (`opental_tpu/tools/test.py:142-147`). With a mesh
+    (`parallel.mesh.make_mesh`) every rank runs the same videos, each
+    forward split over the ranks, and rank 0 alone writes the JSON."""
     te = cfg.testing
-    pipe, video_infos, idx_to_class = build_pipeline(cfg, device)
+    pipe, video_infos, idx_to_class = build_pipeline(cfg, device, mesh)
     fusion = te.get('fusion', False)
     npy_path = (te.get('rgb_data_path', './datasets/thumos14/test_npy/')
                 if fusion
@@ -134,12 +141,15 @@ def run_test(cfg: Config, max_videos: Optional[int] = None,
     names = list(video_infos.keys())[:max_videos]
     result_dict = infer_videos(pipe, te, video_infos, names, npy_path,
                                flow_path)
+    output_path = te.get('output_path', './output')
+    json_name = te.get('output_json', 'detection_results.json')
+    if mesh is not None and mesh.rank != 0:
+        return os.path.join(output_path, json_name)
     for i, name in enumerate(names):
         print(f'[{i + 1}/{len(names)}] {name}: '
               f'{len(result_dict[name])} proposals')
-    return proposals_to_json(result_dict, idx_to_class,
-                             te.get('output_path', './output'),
-                             te.get('output_json', 'detection_results.json'))
+    return proposals_to_json(result_dict, idx_to_class, output_path,
+                             json_name)
 
 
 def main(argv=None) -> None:

@@ -3,7 +3,12 @@
 
 Counterpart of `opental_tpu/tools/train.py` (reference
 `python AFSD/thumos14/train.py <cfg>`, AFSD/thumos14/train.py:306-363).
-Trains on the card unless `--device cpu` is asked for.
+Trains on the card unless `--device cpu` is asked for. `--use_mesh`
+trains data-parallel, one process per card, over the global batch of
+`--batch_size` rows:
+
+    torchrun --nproc_per_node N -m opental_torch.tools.train <cfg> \
+        --use_mesh
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ def main(argv=None) -> None:
                        ('ctr weight', 'ctw'), ('ssl weight', 'ssl'),
                        ('piou', 'piou'), ('resume', 'resume')):
         print(f'{label}: ', tr.get(key))
+    print('use_mesh: ', tr.get('use_mesh', False))
     train(cfg, max_steps_per_epoch=args.max_steps_per_epoch,
           device=args.device)
 

@@ -4,7 +4,8 @@ Counterpart of `opental_tpu/train/loop.py:33-241` (reference __main__ of
 AFSD/thumos14/train.py:306-363): builds the model, losses, optimizer and
 dataset from a Config, runs steps under the EDL epoch schedule, logs
 metrics, and checkpoints every epoch after epoch 10 (train.py:290-292),
-with resume. Runs on the card unless the caller asks for the CPU.
+with resume; data-parallel over a mesh with `training.use_mesh`. Runs
+on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -23,9 +24,12 @@ from opental_torch.data.prefetch import prefetch
 from opental_torch.data.thumos import (ThumosTrainDataset, get_video_anno,
                                        get_video_info)
 from opental_torch.losses.edl import EDLState
+from opental_torch.parallel.mesh import (Mesh, make_mesh, shard_batch,
+                                         shard_rows)
 from opental_torch.train import checkpoint as ckpt
 from opental_torch.train.step import (TrainState, make_anet_optimizer,
-                                      make_optimizer, train_step)
+                                      make_data_parallel, make_optimizer,
+                                      train_step)
 
 SAVE_AFTER_EPOCH = 10
 
@@ -129,15 +133,41 @@ def train(cfg: Config, max_steps_per_epoch: Optional[int] = None,
     `prefetch_depth` steps ahead on a background thread; metrics are read
     back every `log_every` steps, so the loop does not wait on the card
     after every step. `training.resume`: an epoch to resume from, -1 for
-    the newest checkpoint, 0 to start afresh."""
-    dev = resolve_device(device)
+    the newest checkpoint, 0 to start afresh.
+
+    `training.use_mesh` (the CLI's --use_mesh) trains data-parallel on
+    the mesh of `parallel.mesh.make_mesh` (torchrun's ranks, one card
+    each; or the process group already initialized): every rank builds
+    the same state and dataset from the seed, draws the same global
+    batch of `training.batch_size` rows (divisible by the mesh size) and
+    keeps its rows; the step's loss and gradient are the global batch's
+    (`train.step.make_data_parallel`). Every rank restores a
+    checkpoint; rank 0 alone logs and writes them."""
     tr = cfg.training
+    mesh = None
     if tr.get('use_mesh', False):
-        raise NotImplementedError('data-parallel training (use_mesh) is not '
-                                  'ported yet')
+        mesh = make_mesh(device=device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
+    try:
+        return _train(cfg, dev, mesh, max_steps_per_epoch, log_every,
+                      prefetch_depth)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train(cfg: Config, dev: torch.device, mesh: Optional[Mesh],
+           max_steps_per_epoch: Optional[int], log_every: int,
+           prefetch_depth: int) -> TrainState:
+    tr = cfg.training
     clip_length = cfg.get_path('dataset.training.clip_length', 256)
     crop_size = cfg.get_path('dataset.training.crop_size', 96)
     batch_size = tr.get('batch_size', 1)
+    if mesh is not None:
+        shard_rows(mesh, batch_size)     # the global batch must divide
+    lead = mesh is None or mesh.rank == 0
     seed = tr.get('random_seed', 2020)
     torch.manual_seed(seed)
 
@@ -156,9 +186,16 @@ def train(cfg: Config, max_steps_per_epoch: Optional[int] = None,
     if resume and resume > 0:
         start_epoch = ckpt.restore(checkpoint_path, resume, state,
                                    dataset.rng) + 1
+    if mesh is not None:
+        make_data_parallel(state, mesh)
+
+    def global_batches():
+        for batch in dataset.batches(batch_size):
+            yield batch if mesh is None else shard_batch(mesh, batch)
 
     logger = MetricsLogger(checkpoint_path,
-                           enabled=cfg.get_path('testing.split', 0) == 0)
+                           enabled=lead and cfg.get_path('testing.split',
+                                                         0) == 0)
     try:
         for epoch in range(start_epoch, tr.get('max_epoch', 25) + 1):
             t0 = time.time()
@@ -174,7 +211,7 @@ def train(cfg: Config, max_steps_per_epoch: Optional[int] = None,
                         sums[k] = sums.get(k, 0.0) + v
                 pending.clear()
 
-            for batch in prefetch(dataset.batches(batch_size), dev,
+            for batch in prefetch(global_batches(), dev,
                                   depth=prefetch_depth):
                 metrics = train_step(state, loss_cfg, weights, batch, epoch)
                 n_steps += 1
@@ -184,6 +221,8 @@ def train(cfg: Config, max_steps_per_epoch: Optional[int] = None,
                 if max_steps_per_epoch and n_steps >= max_steps_per_epoch:
                     break
             flush()
+            if not lead:
+                continue
             means = {k: v / max(n_steps, 1) for k, v in sums.items()}
             print(f'Epoch-{epoch} Train Loss: Total - '
                   f'{means.get("cost", 0):.5f}'

@@ -17,11 +17,15 @@ from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from opental_torch.losses.anet_multisegment import anet_multisegment_loss
 from opental_torch.losses.boundary import boundary_losses, ssl_triplet_loss
 from opental_torch.losses.edl import EDLState
 from opental_torch.losses.multisegment import LossConfig, multisegment_loss
+from opental_torch.models import layers
+from opental_torch.models.bdnet import UNBATCHED_OUTPUTS
+from opental_torch.parallel.mesh import Mesh, gather_rows, replicate
 
 SSL_SCALE_WEIGHTS = (1.0, 0.1, 0.1)
 
@@ -44,6 +48,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     edl_state: Optional[EDLState] = None
     step: int = 0
+    mesh: Optional[Mesh] = None       # set by `make_data_parallel`
+    ddp: Optional[torch.nn.Module] = None
 
 
 def device_ingest(batch: Dict[str, torch.Tensor]
@@ -98,29 +104,62 @@ def make_anet_optimizer(model: torch.nn.Module, learning_rate: float,
         weight_decay=weight_decay)
 
 
-def compute_losses(model: torch.nn.Module, loss_cfg: LossConfig,
-                   weights: LossWeights, batch: Dict[str, torch.Tensor],
-                   edl_state: Optional[EDLState], epoch: int,
-                   fuse_ssl: bool = False
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
-                              Optional[EDLState]]:
-    """Full training objective (train.py:222-241) on an ingested batch:
-    clips (B, C, T, H, W), truths (B, N, 2), labels (B, N), gt_mask (B, N),
-    scores (B, 2, T) (ANet: (B, 3, T)), ssl_clips, ssl_props (B, 3, 2), ssl_flags (B,).
-    Returns (cost, loss terms, new EDL state).
+class TrainPasses(torch.nn.Module):
+    """The model's training passes as one `forward`: the main pass, and
+    the SSL pass when `ssl_clips` is given (fused with the main one when
+    `fuse`). DDP wraps this module, so that one DDP forward covers both
+    passes of a step: its hooks see only `forward`, and `ssl_forward`
+    called beside it would escape them.
 
-    fuse_ssl runs the main and SSL passes as one (`train_forward`), as
-    the JAX rule allows it (`opental_tpu/train/step.py:130-131`): only
-    while BN is frozen (with `model.freeze_bn: false` each pass draws its
-    own batch statistics), the SSL weight is positive and the batch has
-    SSL clips; otherwise the passes run one after the other."""
-    use_ssl = weights.ssl > 0 and 'ssl_clips' in batch
-    fused_trip = None
-    if fuse_ssl and use_ssl and getattr(model, 'freeze_bn', True):
-        out, fused_trip = model.train_forward(
-            batch['clips'], batch['ssl_clips'], batch['ssl_props'])
-    else:
-        out = model(batch['clips'])
+    `forward` returns (the out_dict's batched entries, the SSL triplets
+    or None) and keeps the model's shared entries (`UNBATCHED_OUTPUTS`:
+    the priors, the RPL centers and radius, its own buffers and
+    parameters) in `self.shared`: DDP takes a parameter among a forward's
+    outputs for one the backward reaches, which GCPL's unused radius
+    never is."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+        self.shared: Dict[str, torch.Tensor] = {}
+
+    def forward(self, clips: torch.Tensor,
+                ssl_clips: Optional[torch.Tensor] = None,
+                ssl_props: Optional[torch.Tensor] = None,
+                fuse: bool = False):
+        model = self.model
+        if ssl_clips is None:
+            out, trip = model(clips), None
+        elif fuse and getattr(model, 'freeze_bn', True):
+            out, trip = model.train_forward(clips, ssl_clips, ssl_props)
+        else:
+            out, trip = model(clips), model.ssl_forward(ssl_clips,
+                                                        ssl_props)
+        self.shared = {k: out.pop(k) for k in UNBATCHED_OUTPUTS if k in out}
+        return out, trip
+
+
+def run_passes(passes: torch.nn.Module, weights: LossWeights,
+               batch: Dict[str, torch.Tensor], fuse_ssl: bool = False):
+    """(the out_dict's batched entries, SSL triplets or None) of an
+    ingested batch through `TrainPasses` or DDP around it."""
+    if weights.ssl > 0 and 'ssl_clips' in batch:
+        return passes(batch['clips'], batch['ssl_clips'],
+                      batch['ssl_props'], fuse=fuse_ssl)
+    return passes(batch['clips'])
+
+
+def losses_of_outputs(loss_cfg: LossConfig, weights: LossWeights,
+                      out: Dict[str, torch.Tensor], trip,
+                      batch: Dict[str, torch.Tensor],
+                      edl_state: Optional[EDLState], epoch: int
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                 Optional[EDLState]]:
+    """The training objective (train.py:222-241) of the model's outputs
+    on the batch's targets: truths (B, N, 2), labels (B, N), gt_mask
+    (B, N), scores (B, 2, T) (ANet: (B, 3, T)), ssl_flags (B,); `trip`
+    the SSL triplet features or None. Returns (cost, loss terms, new EDL
+    state)."""
     if loss_cfg.variant == 'anet':
         losses, new_edl = anet_multisegment_loss(
             loss_cfg, out, batch['truths'], batch['labels'],
@@ -144,10 +183,8 @@ def compute_losses(model: torch.nn.Module, loss_cfg: LossConfig,
                                       + losses['loss_prop_act'])
 
     loss_trip = cost.new_zeros(())
-    if use_ssl:
-        anchors, positives, negatives = (
-            fused_trip if fused_trip is not None else model.ssl_forward(
-                batch['ssl_clips'], batch['ssl_props']))
+    if trip is not None:
+        anchors, positives, negatives = trip
         # the reference gates by the augmentation's success flag
         # (train.py:237); a batch weighs by its flagged fraction
         flag = batch['ssl_flags'].float().mean()
@@ -161,32 +198,122 @@ def compute_losses(model: torch.nn.Module, loss_cfg: LossConfig,
     return cost, metrics, new_edl
 
 
+def compute_losses(model: torch.nn.Module, loss_cfg: LossConfig,
+                   weights: LossWeights, batch: Dict[str, torch.Tensor],
+                   edl_state: Optional[EDLState], epoch: int,
+                   fuse_ssl: bool = False
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                              Optional[EDLState]]:
+    """Full training objective (train.py:222-241) on an ingested batch:
+    clips (B, C, T, H, W), the targets of `losses_of_outputs`, ssl_clips,
+    ssl_props (B, 3, 2). Returns (cost, loss terms, new EDL state).
+
+    fuse_ssl runs the main and SSL passes as one (`train_forward`), as
+    the JAX rule allows it (`opental_tpu/train/step.py:130-131`): only
+    while BN is frozen (with `model.freeze_bn: false` each pass draws its
+    own batch statistics), the SSL weight is positive and the batch has
+    SSL clips; otherwise the passes run one after the other."""
+    passes = TrainPasses(model)
+    out, trip = run_passes(passes, weights, batch, fuse_ssl)
+    return losses_of_outputs(loss_cfg, weights, dict(out, **passes.shared),
+                             trip, batch, edl_state, epoch)
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm)."""
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+MODEL_INPUTS = ('clips', 'ssl_clips', 'ssl_props')
+
+
+def make_data_parallel(state: TrainState, mesh: Mesh) -> TrainState:
+    """Put the state on the data mesh: rank 0's weights (parameters and
+    buffers, `replicate`) on every rank, and `TrainPasses` of the model
+    in DDP, after which `train_step` runs the mesh step. The broadcast
+    is `replicate`'s alone (`init_sync` off): DDP's own would copy the
+    parameters again and, with `broadcast_buffers` off, not the buffers
+    (the frozen BN scales and biases among them). `broadcast_buffers` is
+    off: the BN statistics agree by construction (`global_batch_stats`).
+    `static_graph` is on: a step's set of parameters is fixed by the
+    config, but some are off the graph (GCPL's RPL radius) and some are
+    read outside the forward too (RPL's radius and centers, by the
+    loss), which `find_unused_parameters`' search from the outputs cannot
+    see; a static graph learns the set from the first step's gradients.
+    A parameter off the graph keeps no gradient and takes weight decay on
+    a zero one, as in `train_step`."""
+    replicate(mesh, state.model)
+    dev = mesh.device
+    state.ddp = DistributedDataParallel(
+        TrainPasses(state.model),
+        device_ids=[dev] if dev.type == 'cuda' else None,
+        process_group=mesh.group, broadcast_buffers=False,
+        static_graph=True, init_sync=False)
+    state.mesh = mesh
+    return state
+
+
+def _global_batch(mesh: Optional[Mesh], out: Dict[str, torch.Tensor],
+                  trip, batch: Dict[str, torch.Tensor]):
+    """The out_dict, SSL triplets and targets of the global batch: every
+    batched output and target gathered in rank order (as they are
+    without a mesh)."""
+    if mesh is None:
+        return out, trip, batch
+    out = {k: gather_rows(mesh, v) if isinstance(v, torch.Tensor) else v
+           for k, v in out.items()}
+    if trip is not None:
+        trip = tuple([gather_rows(mesh, t) for t in part] for part in trip)
+    batch = {k: (v if k in MODEL_INPUTS else gather_rows(mesh, v))
+             for k, v in batch.items()}
+    return out, trip, batch
+
+
+def _step_losses(state: TrainState, loss_cfg: LossConfig,
+                 weights: LossWeights, batch: Dict[str, torch.Tensor],
+                 epoch: int, fuse_ssl: bool):
+    """(loss terms, new EDL state), the backward done. On a mesh each rank
+    runs its rows through DDP, gathers the outputs and the targets, and
+    takes the same loss of the global batch as one device would (the
+    normalizers, the PU max, the MIB histogram, ANet's sample loop and
+    the SSL flag mean are all global); the gather's backward leaves W x
+    each rank's share of the gradient, and DDP's mean over the W ranks
+    makes it the global batch's gradient."""
+    passes = state.ddp or TrainPasses(state.model)
+    module = getattr(passes, 'module', passes)      # inside DDP or not
+    with layers.global_batch_stats(state.mesh):
+        out, trip, targets = _global_batch(
+            state.mesh, *run_passes(passes, weights, batch, fuse_ssl),
+            batch)
+        cost, metrics, new_edl = losses_of_outputs(
+            loss_cfg, weights, dict(out, **module.shared), trip, targets,
+            state.edl_state, epoch)
+        cost.backward()
+    return metrics, new_edl
 
 
 def train_step(state: TrainState, loss_cfg: LossConfig,
                weights: LossWeights, batch: Dict[str, torch.Tensor],
                epoch: int, fuse_ssl: bool = False
                ) -> Dict[str, torch.Tensor]:
-    """One optimizer step on a batch already on the model's device.
-    Updates `state` in place and returns the detached metrics (loss terms,
-    cost, grad_norm) as device tensors: reading them is the caller's
+    """One optimizer step on a batch already on the model's device (on a
+    mesh, `make_data_parallel`: this rank's rows of the global batch).
+    Updates `state` in place and returns the detached metrics (loss
+    terms, cost, grad_norm; on a mesh those of the global batch, equal
+    on every rank) as device tensors: reading them is the caller's
     synchronisation. fuse_ssl: as `compute_losses`."""
     model = state.model
     model.train()
     batch = device_ingest(batch)
     state.optimizer.zero_grad(set_to_none=True)
-    cost, metrics, new_edl = compute_losses(model, loss_cfg, weights, batch,
-                                            state.edl_state, epoch,
-                                            fuse_ssl=fuse_ssl)
-    cost.backward()
+    metrics, new_edl = _step_losses(state, loss_cfg, weights, batch, epoch,
+                                    fuse_ssl)
     for p in model.parameters():
         if p.grad is None:
             # a parameter off this step's graph still takes weight decay,
             # as the JAX step's zero gradient does
             p.grad = torch.zeros_like(p)
+    # read after DDP's reduction: the global gradient's norm on every rank
     metrics['grad_norm'] = global_norm(p.grad for p in model.parameters())
     state.optimizer.step()
     state.edl_state = new_edl

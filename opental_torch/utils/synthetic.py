@@ -20,6 +20,29 @@ import yaml
 CLASS_NAMES = ['Run', 'Jump', 'Swim', 'Dive', 'Lift']
 
 
+def tiny_train_batch(batch_size: int, frame: int = 128, crop: int = 32,
+                     seed: int = 0) -> Dict[str, np.ndarray]:
+    """A numpy training batch with every input the train step reads
+    (clips, padded GT, heatmaps, SSL triplet inputs) at toy shapes; a
+    copy of `opental_tpu/utils/synthetic.py:21` (the multichip dryrun's
+    batch)."""
+    rng = np.random.RandomState(seed)
+    b = batch_size
+    return {
+        'clips': rng.randn(b, frame, crop, crop, 3).astype(np.float32),
+        'truths': np.tile(np.array([[[0.1, 0.4], [0.5, 0.8]]], np.float32),
+                          (b, 1, 1)),
+        'labels': np.tile(np.array([[3, 7]], np.int32), (b, 1)),
+        'gt_mask': np.ones((b, 2), bool),
+        'scores': (rng.rand(b, 2, frame) > 0.9).astype(np.float32),
+        'ssl_clips': rng.randn(b, frame, crop, crop, 3).astype(np.float32),
+        'ssl_props': np.tile(
+            np.array([[[10., 40.], [60., 100.], [45., 55.]]], np.float32),
+            (b, 1, 1)),
+        'ssl_flags': np.ones((b,), np.float32),
+    }
+
+
 def make_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
                            clip_length: int = 128, crop_size: int = 32,
                            spatial: int = 40, num_known: int = 4,

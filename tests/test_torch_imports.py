@@ -127,9 +127,9 @@ def test_train_entry_points_need_a_card_unless_cpu_is_asked():
         train(load_config(cfg_path))
     with pytest.raises(RuntimeError, match='CUDA'):
         train_cli.main([cfg_path])
-    with pytest.raises(NotImplementedError, match='use_mesh'):
-        train(load_config(cfg_path, overrides={'training.use_mesh': True}),
-              device='cpu')
+    # data-parallel training joins its mesh on the card by default too
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train(load_config(cfg_path, overrides={'training.use_mesh': True}))
 
 
 def test_training_modules_are_ported():
@@ -231,3 +231,38 @@ def test_single_device_modules_are_ported():
     with pytest.raises(RuntimeError, match='CUDA'):
         export.main([os.path.join(ROOT, 'configs',
                                   'thumos14_opental_final.yaml')])
+
+
+def test_parallel_modules_import_with_jax_blocked():
+    """The data-mesh slice's modules (`opental_torch.parallel.*`) are
+    part of the port and import with jax, flax and opental_tpu blocked
+    (the rank processes that tests and chip_smoke.py spawn import them);
+    the mesh refuses the card where there is none."""
+    mods = [m for m in port_modules()
+            if m.startswith('opental_torch.parallel')]
+    assert {'opental_torch.parallel', 'opental_torch.parallel.mesh',
+            'opental_torch.parallel.dryrun'} <= set(mods)
+    code = textwrap.dedent(f"""
+        import importlib, importlib.abc, sys
+        BLOCKED = {BLOCKED!r}
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split('.')[0] in BLOCKED:
+                    raise ImportError('blocked: ' + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {ROOT!r})
+        for m in {mods!r}:
+            importlib.import_module(m)
+        print('ok')
+    """)
+    res = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == 'ok', res.stderr
+    if torch.cuda.is_available():
+        return
+    from opental_torch.parallel.mesh import make_mesh
+    with pytest.raises(RuntimeError, match='CUDA'):
+        make_mesh(world_size=1, device='cuda')

@@ -113,6 +113,12 @@ Phases (any failure ends the run with a non-zero exit):
  29. tools.test_cross_data over the phase-6 videos and synthetic
      ActivityNet videos, and tools.search_param over a 2 x 2 grid, its
      cache re-read
+ 39. tools.analysis distribution, actionness and per_class on phase 29's
+     videos, GT and weights: the first fills a fresh raw cache (B1 once
+     per forward), the other two reread it (no launch); stage_buckets on
+     that cache == on phase 29's search_param cache, bit for bit; the
+     figures and per_class_stats.csv written; the phase's seconds
+     (it runs right after phase 29)
  30. the fused SSL step (fuse_ssl: one backbone and pyramid pass over the
      2B batch) vs the sequential step at bs=1 and bs=8, f32, TF32 off:
      loss terms, gradients, B1 / B2 launches; step ms in turns and peak
@@ -205,9 +211,9 @@ from opental_torch.parallel.dryrun import (  # noqa: E402
     rank_backend, step_record)
 from opental_torch.parallel.mesh import make_mesh  # noqa: E402
 from opental_torch.infer.streaming import StreamingSession  # noqa: E402
-from opental_torch.tools import (eval_open, export,  # noqa: E402
-                                 search_param, test_anet, test_cross_data,
-                                 test_openmax)
+from opental_torch.tools import (analysis, eval_open,  # noqa: E402
+                                 export, search_param, test_anet,
+                                 test_cross_data, test_openmax)
 from opental_torch.tools import threshold as threshold_cli  # noqa: E402
 from opental_torch.tools import train as train_cli  # noqa: E402
 from opental_torch.tools.test import build_pipeline, run_test  # noqa: E402
@@ -3183,9 +3189,14 @@ def phase_cross_search(root, lengths):
         f'({len(val) - len(kept)} dropped for {dropped}), {n_props} '
         f'proposals, '
         f'{wall:.3f} s, B1 {cross} ({forwards} forwards)')
+    search = search_param_runs(root, lengths)
+    return dict(search, launches=cross + search['launches'], cross_s=wall)
 
-    # search_param on two of the videos, top_k 200, a GT of 3 segments
-    # per video
+
+def search_param_runs(root, lengths) -> dict:
+    """Phase 29's search_param: two of phase 6's videos, top_k 200, a GT
+    of 3 segments per video, the 2 x 2 grid run twice (the second reads
+    the cache)."""
     names = list(lengths)[:2]
     sub_info = os.path.join(root, 'video_info_2.csv')
     with open(os.path.join(root, 'video_info.csv')) as f:
@@ -3230,8 +3241,133 @@ def phase_cross_search(root, lengths):
     log(f'search_param: first run {runs[0][0]:.3f} s (B1 {runs[0][1]}, '
         f'{fwd} forwards), second {runs[1][0]:.3f} s reading the cache (B1 '
         f'0), the same mAPs: {runs[0][2]}')
-    return {'launches': cross + runs[0][1], 'cross_s': wall,
-            'search_s': (runs[0][0], runs[1][0])}
+    return {'launches': runs[0][1], 'search_s': (runs[0][0], runs[1][0]),
+            'config': path, 'gt': gt,
+            'cache': os.path.join(root, 'out_search', 'raw_cache'),
+            'forwards': fwd}
+
+
+# -------------------------------------- the host-only tools' slice (39)
+
+ANALYSIS_FILES = {
+    'distribution': {'dist_coarse.png', 'dist_refined.png'},
+    'actionness': {f'{t}_dist_{s}.png' for t in ('actionness', 'uncertainty')
+                   for s in ('coarse', 'refined')}
+    | {f'dist_{s}_{k}.png' for s in ('coarse', 'refined')
+       for k in ('act', 'unct')},
+    'per_class': {'dist_coarse_per_class.png', 'dist_refined_per_class.png',
+                  'per_class_stats.csv'},
+}
+
+
+class FigureRecorder:
+    """Stands in for matplotlib.pyplot (`analysis._plt`) in phase 39 (the
+    card's machine has no matplotlib; the CPU tests render the PNGs):
+    each savefig records the file name and the arrays its histograms
+    were given; everything else the reports call on a figure or axis
+    does nothing."""
+
+    def __init__(self):
+        self.figures, self._arrays = {}, []
+
+    def hist(self, x, *args, **kwargs):
+        self._arrays.append(np.asarray(x, float))
+
+    def subplots(self, rows, cols, **kwargs):
+        return self, [[self] * cols for _ in range(rows)]
+
+    def savefig(self, path, *args, **kwargs):
+        self.figures[os.path.basename(path)] = self._arrays
+        self._arrays = []
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def phase_analysis(root, search) -> dict:
+    log('== phase 39: tools.analysis distribution, actionness and '
+        'per_class on the card (phase 29\'s two videos, GT and weights; a '
+        'fresh raw cache)')
+    t_phase = time.perf_counter()
+    known = os.path.join(root, 'analysis_known.txt')
+    with open(known, 'w') as f:     # Class11-15 of the GT are unknown
+        f.write(''.join(f'{i} Class{i:02d}\n' for i in range(1, 11)))
+    cache = os.path.join(root, 'analysis_cache')
+    out = os.path.join(root, 'analysis_figures')
+    recorder, runs, calls = FigureRecorder(), {}, []
+    real_plt = analysis._plt
+    analysis._plt = lambda: recorder
+    try:
+        for cmd in ANALYSIS_FILES:
+            argv = [cmd, search['config'], '--gt_json', search['gt'],
+                    '--cls_idx', known, '--out_dir', out, '--raw_cache',
+                    cache]
+            reset_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                calls += capture_calls(lambda: analysis.main(argv))
+            torch.cuda.synchronize()
+            runs[cmd] = (time.perf_counter() - t0,
+                         boundary_pool_cuda.LAUNCHES,
+                         [ln.split(' ', 1)[1] for ln in
+                          buf.getvalue().splitlines()
+                          if ln.startswith('wrote ')])
+    finally:
+        analysis._plt = real_plt
+    launches = {cmd: r[1] for cmd, r in runs.items()}
+    # the first command fills the cache (the network once per window
+    # batch), the other two reread it
+    assert launches == {'distribution': POOLS_PER_FORWARD
+                        * search['forwards'], 'actionness': 0,
+                        'per_class': 0}, (launches, search['forwards'])
+    # B1 against its plain version at the shapes the fresh-cache run
+    # gave it (the bucket check below compares the kernel with itself)
+    assert calls
+    b1_err = hold_b1(calls, 'analysis distribution')
+    for cmd, (_, _, written) in runs.items():
+        assert {os.path.basename(w) for w in written} == ANALYSIS_FILES[cmd], \
+            (cmd, written)
+        for w in written:
+            if w.endswith('.png'):
+                arrays = recorder.figures[os.path.basename(w)]
+                assert arrays and all(a.size and np.isfinite(a).all()
+                                      for a in arrays), w
+            else:
+                assert os.path.getsize(w) > 0, w
+    with open(os.path.join(out, 'per_class_stats.csv')) as f:
+        rows = f.read().splitlines()
+    assert rows[0] == 'class,stage,count,mean,std,p05,p95' \
+        and len(rows) == 1 + 2 * 10, rows[:3]
+    # the fresh cache against phase 29's search_param cache of the same
+    # videos and weights: the same path and kernel, so bit for bit (the
+    # cache is reproducible)
+    cfg = load_config(search['config'])
+    diff, n_values = 0.0, 0
+    for target in ('uncertainty', 'actionness', 'confidence'):
+        got = analysis.stage_buckets(cfg, cache, search['gt'], known, target)
+        want = analysis.stage_buckets(cfg, search['cache'], search['gt'],
+                                      known, target)
+        for stage, buckets in got.items():
+            for b, v in buckets.items():
+                w = want[stage][b]
+                assert v.shape == w.shape and np.isfinite(v).all(), \
+                    (target, stage, b)
+                n_values += v.size
+                if v.size:
+                    diff = max(diff, float(np.abs(v - w).max()))
+    assert n_values > 0
+    secs = time.perf_counter() - t_phase
+    log(f'analysis: distribution {runs["distribution"][0]:.3f} s (B1 '
+        f'{launches["distribution"]}, {search["forwards"]} forwards into a '
+        f'fresh cache), actionness {runs["actionness"][0]:.3f} s and '
+        f'per_class {runs["per_class"][0]:.3f} s reading it (B1 0); '
+        f'B1 vs plain on its {len(calls)} calls (f32, bf16): max |diff| '
+        f'{b1_err!r}; stage_buckets of {n_values} values vs phase 29\'s '
+        f'cache: max difference {diff!r}; phase {secs:.3f} s')
+    assert diff == 0.0, diff
+    return {'launches': launches['distribution'], 'seconds': secs,
+            'diff': diff, 'b1_err': b1_err}
 
 
 # ------------------------------ the single-device leftovers (30 - 35)
@@ -4190,8 +4326,10 @@ def main() -> int:
         train_bwd += rpl['bwd']
         openmax = phase_openmax(root)
         cross = phase_cross_search(root, lengths)
+        tools = phase_analysis(root, cross)
+        max_err = max(max_err, tools['b1_err'])
         launches += rpl['infer'] + openmax['launches'] + cross['launches'] \
-            + single['fwd']
+            + single['fwd'] + tools['launches']
         train_bwd += single['bwd'] + train_bwd_mesh
         v1_launches += single['v1']
         phase_train_speed(cfg)
@@ -4215,6 +4353,10 @@ def main() -> int:
         f'the span shape {shared["b4"]}; step ms {rpl["ms"]}, peak GiB '
         f'{rpl["peak"]}; OpenMax stages {openmax["times"]}; cross-data '
         f'{cross["cross_s"]:.3f} s, search_param {cross["search_s"]}')
+    log(f'host tools slice: phase 39 (tools.analysis on the card) '
+        f'{tools["seconds"]:.3f} s, B1 {tools["launches"]} (vs plain max '
+        f'|diff| {tools["b1_err"]!r}), stage_buckets vs phase 29\'s cache '
+        f'max difference {tools["diff"]!r}')
     ms_gib = lambda t: f'{t[0]:.1f} ms, {t[1]:.2f} GiB'  # noqa: E731
     fuse, remat = single['fuse'], single['remat']
     log(f'single-device slice: fused / sequential step '
@@ -4237,7 +4379,8 @@ def main() -> int:
     log(f'boundary_max_pool_fwd launches: {launches} in the inference runs '
         f'(per-video set, packed, fused off and on, calibration, shared '
         f'packed and per video and with stem_pallas, RPL / GCPL run_test, '
-        f'OpenMax, cross-data, search_param; ANet: first, fused, binary, '
+        f'OpenMax, cross-data, search_param, analysis; ANet: first, fused, '
+        f'binary, '
         f'calibration; phases 30-35: the fused, remat and transformer '
         f'steps and forwards, the exported programs, streaming, the '
         f'profiled run_test; phases 36-38: the mesh steps, training and '

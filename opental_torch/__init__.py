@@ -11,14 +11,15 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
-import torch
 
-
-def resolve_device(device: Optional[Union[str, torch.device]] = None
-                   ) -> torch.device:
+def resolve_device(device: Optional[Union[str, 'torch.device']] = None
+                   ) -> 'torch.device':
     """`device` or, when None, the card. Raises if the card is asked
     for and there is none: the entry points never carry on on the CPU
-    unless the caller asks for it."""
+    unless the caller asks for it. (torch is imported here, not with the
+    package: the host-only tools and their worker processes do not need
+    it.)"""
+    import torch
     dev = torch.device('cuda' if device is None else device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(

@@ -102,14 +102,18 @@ def _masked_bin_mean_ema(values: torch.Tensor, bins: torch.Tensor,
                          valid: torch.Tensor, accum: torch.Tensor,
                          momentum: float, num_bins: int) -> torch.Tensor:
     """EMA accum[b] toward mean(values | bins == b) for bins with members
-    (cls_loss.py:264-267); invalid rows go to a dropped extra slot."""
-    bins = torch.where(valid, bins, torch.full_like(bins, num_bins)).long()
-    zeros = torch.zeros(num_bins + 1, device=values.device)
-    sums = zeros.index_add(0, bins, torch.where(valid, values,
-                                                torch.zeros_like(values)))
-    counts = zeros.index_add(0, bins, valid.float())
-    means = sums[:num_bins] / counts[:num_bins].clamp_min(1.0)
-    has = counts[:num_bins] > 0
+    (cls_loss.py:264-267); invalid rows belong to no bin. Each bin's sum
+    is a reduction over a one-hot membership mask, not an index_add: on
+    the card index_add adds with atomics in no fixed order, so the state
+    of one step from one input would differ in its last bits from run to
+    run."""
+    member = valid[:, None] & (
+        bins[:, None] == torch.arange(num_bins, device=bins.device))
+    sums = torch.where(member, values[:, None],
+                       torch.zeros_like(values)[:, None]).sum(0)
+    counts = member.sum(0)
+    means = sums / counts.clamp_min(1).to(sums.dtype)
+    has = counts > 0
     return torch.where(has, momentum * accum + (1 - momentum) * means, accum)
 
 

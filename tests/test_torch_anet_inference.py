@@ -17,7 +17,8 @@ evaluator's metrics (mAP at tIoU 0.1:0.5, AUROC / AUPR) at atol 1e-6:
    flow in the binary-actionness mode, against JAX's `calibrate_anet`
    over the training videos of a video-level classifier file: the
    threshold at rtol 1e-4 and the thresholding JSON per proposal.
-The CLI reads an existing thresholding file before it routes.
+The CLI reads an existing thresholding file before it routes
+(`test_torch_anet_threshold_cli.py`).
 """
 
 import json
@@ -27,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 import yaml
+
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 import jax
 import jax.numpy as jnp
@@ -51,14 +54,6 @@ from opental_torch.utils.synthetic import make_synthetic_anet_dataset
 
 CLIP, CROP, BATCH = 256, 32, 2
 CLASSES = [f'Act{i:02d}' for i in range(1, 5)]
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def write_cls_file(path, names, seed):
@@ -269,28 +264,3 @@ def test_threshold_cli_matches_jax_calibrate_anet(dataset, jax_runs,
         assert props and all(p['label'] == label for p in props), vid
     np.testing.assert_allclose(got['external_data']['threshold'],
                                jax_runs['threshold'], rtol=1e-4)
-
-
-def test_threshold_cli_reads_an_existing_file_first(tmp_path, monkeypatch,
-                                                   capsys):
-    """An ANet config routes to calibrate_anet, but an existing
-    thresholding file is read before any routing, as the JAX CLI does
-    (a THUMOS config with the ANet flags:
-    `tests/test_torch_threshold.py::test_anet_calibration_is_refused`)."""
-    calls = []
-    monkeypatch.setattr(threshold_cli, 'calibrate_anet',
-                        lambda *a, **k: calls.append('anet') or 0.25)
-    out = tmp_path / 'out'
-    path = tmp_path / 'anet.yaml'
-    path.write_text(yaml.safe_dump({'model': {'arch': 'anet'},
-                                    'testing': {'output_path': str(out)}}))
-    threshold_cli.main([str(path), '--binary', '--device', 'cpu',
-                        '--output_json', 'new.json'])
-    assert calls == ['anet']
-    out.mkdir()
-    (out / 'existing.json').write_text(json.dumps(
-        {'external_data': {'threshold': 0.125}}))
-    threshold_cli.main([str(path), '--device', 'cpu', '--output_json',
-                        'existing.json'])
-    assert calls == ['anet']
-    assert 'The threshold is: 0.125' in capsys.readouterr().out

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_suite import suite_policy  # noqa: F401 (autouse)
+
 import jax
 import jax.numpy as jnp
 
@@ -36,14 +38,6 @@ OUT_KEYS = ('loc', 'conf', 'prop_loc', 'prop_conf', 'center', 'act',
             'start_conf_prop', 'end_conf_prop', 'unct', 'prop_unct')
 CONFIGS = ('configs/anet_opental.yaml', 'configs/anet_edl.yaml',
            'configs/anet_softmax.yaml')
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def numpy_variables(shapes, seed=0):

@@ -1,5 +1,6 @@
 """The port's ActivityNet train step vs the JAX package's, on the CPU in
-float32, and the port's ANet training loop end to end.
+float32 (the port's ANet training loop end to end:
+`test_torch_anet_train_loop.py`).
 
 From one set of flax variables (the ANet BDNet's init shapes at frame
 256, crop 32, seeded numpy values) carried over with
@@ -13,8 +14,6 @@ Held: each step's cost at rtol 1e-4, each loss term and the global
 gradient norm at rtol 3e-4, and the final parameters at rtol 1e-4 / atol
 5e-5, the k-step tolerances of `test_torch_train_step.py`.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -36,14 +35,13 @@ from opental_torch.data.anet import AnetTrainDataset
 from opental_torch.losses.edl import EDLConfig
 from opental_torch.losses.multisegment import LossConfig
 from opental_torch.models.bdnet import BDNet
-from opental_torch.train import checkpoint
-from opental_torch.train.loop import init_state, train
 from opental_torch.train.step import (LossWeights, TrainState,
                                       make_anet_optimizer, train_step)
 from opental_torch.utils.convert import from_jax_variables
 from opental_torch.utils.synthetic import make_synthetic_anet_dataset
 
 from test_torch_anet_model import numpy_variables
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 FRAME, CROP, CLASSES = 256, 32, 5
 LR, WD = 1e-5, 1e-4
@@ -56,14 +54,6 @@ EDL = dict(num_classes=CLASSES - 1, loss_type='log', evidence='exp',
 LOSS = dict(num_classes=CLASSES - 1, clip_length=FRAME, piou=0.0,
             cls_type='edl', os_head=True, act_margin=1.0, act_weight=0.1,
             variant='anet')
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')
@@ -134,42 +124,3 @@ def test_parameters_match_jax(three_steps):
     for k, w in want.items():
         torch.testing.assert_close(got[k], w, rtol=1e-4, atol=5e-5,
                                    msg=lambda m: f'{k}: {m}')
-
-
-def test_backbone_takes_a_tenth_of_the_rate(dataset):
-    """init_state builds the dual-LR optimizer for an ANet config and
-    re-initializes its heads."""
-    cfg = load_config(dataset)
-    state = init_state(cfg, torch.device('cpu'), seed=0, frame_num=FRAME,
-                       crop_size=CROP)
-    heads, backbone = state.optimizer.param_groups
-    assert heads['lr'] == pytest.approx(1e-4)
-    assert backbone['lr'] == pytest.approx(1e-5)
-    names = {id(p): n for n, p in state.model.named_parameters()}
-    assert all(names[id(p)].startswith('backbone.')
-               for p in backbone['params'])
-    assert not any(names[id(p)].startswith('backbone.')
-                   for p in heads['params'])
-    assert len(heads['params']) + len(backbone['params']) == len(names)
-    w = state.model.coarse_pyramid_detection.center_head.conv1d.weight
-    assert abs(w.std().item() - 0.01) < 0.004
-
-
-def test_train_loop_end_to_end(dataset):
-    """tools.train's loop on the ANet config (uint8 ingest): 2 steps,
-    a checkpoint saved and resumed with both optimizer groups."""
-    cfg = load_config(dataset, overrides={'training.uint8_ingest': True})
-    state = train(cfg, max_steps_per_epoch=2, device='cpu')
-    assert state.step == 2
-    ckdir = cfg.training.checkpoint_path
-    checkpoint.save(ckdir, 1, state)
-    again = init_state(cfg, torch.device('cpu'), seed=1, frame_num=FRAME,
-                       crop_size=CROP)
-    assert checkpoint.restore(ckdir, None, again) == 1
-    assert again.step == 2
-    assert [g['lr'] for g in again.optimizer.param_groups] == \
-        pytest.approx([1e-4, 1e-5])
-    for k, v in state.model.state_dict().items():
-        torch.testing.assert_close(again.model.state_dict()[k], v)
-    with open(os.path.join(ckdir, 'metrics.jsonl')) as f:
-        assert len(f.readlines()) == 2

@@ -19,6 +19,7 @@ from opental_torch.ops import boundary_pool as tbp
 from opental_torch.ops import boundary_pool_cuda
 
 from test_torch_boundary_pool import KINDS, make_case
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 # (t_i, k_i): the pyramid's prop problem at frame_num 128 has (32, 32),
 # (16, 16), ..., (1, 1); these mix k != t and a level without windows

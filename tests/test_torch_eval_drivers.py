@@ -27,6 +27,7 @@ import torch
 
 from proposal_matching import assert_proposal_parity
 from test_torch_packed_inference import cli_config, eval_shape_variables
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 from opental_tpu.config import load_config as jax_load_config
 from opental_tpu.eval.detection import DetectionEvaluator as JEvaluator
@@ -49,14 +50,6 @@ CLIP, CROP = 128, 32
 CLASSES = ['Run', 'Jump', 'Swim']
 SMALL = {'model.compute_dtype': 'float32', 'testing.packed_batch': 4,
          'testing.packed_frames': 512}
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def make_jsons(root, seed=0, n_videos=6, openset=True):

@@ -39,20 +39,11 @@ from opental_torch.train.step import (LossWeights, compute_losses,
 
 from test_torch_packed_inference import eval_shape_variables
 from test_torch_train_step import _torch_batch, make_batch, setup_pair
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 CLIP, CROP, W = 128, 32, 2
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, 'configs', 'thumos14_opental_final.yaml')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    """Parallel pytest workers share the host's cores: two threads keep
-    them from thrashing."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

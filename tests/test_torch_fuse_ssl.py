@@ -31,18 +31,9 @@ from opental_torch.train.step import (LossWeights, TrainState,
 
 from test_torch_train_step import (EDL, FRAME, LOSS, LR, TERMS, WD,
                                    _torch_batch, make_batch, setup_pair)
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 EPOCH = 11
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    """Parallel pytest workers share the host's cores: two threads keep
-    them from thrashing."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _fork(tstate):

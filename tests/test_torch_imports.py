@@ -11,6 +11,8 @@ import textwrap
 import pytest
 import torch
 
+from torch_suite import suite_policy  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'opental_tpu')
 
@@ -75,6 +77,9 @@ def test_no_jax_import_statements():
                 assert n.split('.')[0] not in BLOCKED, (path, n)
 
 
+ANALYSIS_NETWORK_COMMANDS = ('distribution', 'actionness', 'per_class')
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
@@ -94,6 +99,18 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
         build_pipeline(cfg)
     with pytest.raises(RuntimeError, match='CUDA'):
         main([os.path.join(ROOT, 'configs', 'thumos14_opental_final.yaml')])
+    # the analysis commands that run the network refuse before they read
+    # or write any file
+    from opental_torch.tools import analysis
+    for cmd in ANALYSIS_NETWORK_COMMANDS:
+        with pytest.raises(RuntimeError, match='CUDA'):
+            analysis.main([cmd, os.path.join(ROOT, 'configs',
+                                             'thumos14_opental_final.yaml'),
+                           '--gt_json', str(tmp_path / 'no_gt.json'),
+                           '--cls_idx', str(tmp_path / 'no_cls.txt'),
+                           '--out_dir', str(tmp_path / 'figures'),
+                           '--raw_cache', str(tmp_path / 'raw_cache')])
+    assert not os.listdir(tmp_path)
 
 
 def test_orbax_directory_is_refused(tmp_path):
@@ -266,3 +283,54 @@ def test_parallel_modules_import_with_jax_blocked():
     from opental_torch.parallel.mesh import make_mesh
     with pytest.raises(RuntimeError, match='CUDA'):
         make_mesh(world_size=1, device='cuda')
+
+
+HOST_TOOLS = ('opental_torch.openset.splits',
+              'opental_torch.data.preprocess',
+              'opental_torch.tools.preprocess',
+              'opental_torch.tools.visualize',
+              'opental_torch.tools.analysis',
+              'opental_torch.data.download',
+              'opental_torch.tools.download')
+
+
+def test_host_tools_are_ported():
+    """The host-only tools (offline preprocessing and open-set splits,
+    visualize, analysis, downloads) are part of the port and import with
+    jax, flax and opental_tpu blocked; with them every module of
+    opental_tpu has a counterpart in opental_torch, apart from the two
+    Pallas kernel files (CUDA in csrc/) and utils/torch_convert.py (its
+    reverse is utils/convert.py)."""
+    assert set(HOST_TOOLS) <= set(port_modules())
+    code = textwrap.dedent(f"""
+        import importlib, importlib.abc, sys
+        BLOCKED = {BLOCKED!r}
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split('.')[0] in BLOCKED:
+                    raise ImportError('blocked: ' + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {ROOT!r})
+        for m in {list(HOST_TOOLS)!r}:
+            importlib.import_module(m)
+        print('ok')
+    """)
+    res = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == 'ok', res.stderr
+    jax_mods = set()
+    for dirpath, _, files in os.walk(os.path.join(ROOT, 'opental_tpu')):
+        for f in files:
+            if f.endswith('.py'):
+                rel = os.path.relpath(os.path.join(dirpath, f),
+                                      os.path.join(ROOT, 'opental_tpu'))
+                jax_mods.add(rel[:-3].replace(os.sep, '.'))
+    port = {m[len('opental_torch.'):] for m in port_modules()
+            if m.startswith('opental_torch.')}
+    port |= {m + '.__init__' for m in port} | {'__init__'}
+    missing = sorted(jax_mods - port)
+    assert missing == ['ops.boundary_pool_pallas', 'ops.stem_pack_pallas',
+                       'utils.torch_convert'], missing

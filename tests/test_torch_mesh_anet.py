@@ -42,6 +42,7 @@ from test_torch_anet_model import numpy_variables
 from test_torch_anet_train import CLASSES, CROP, EDL, FRAME, LOSS, TERMS, \
     WD
 from test_torch_mesh_train import keeping_grads, port_grads
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 WORLD, BATCH, EPOCH = 2, 4, 11
 

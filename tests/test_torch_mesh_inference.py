@@ -31,6 +31,7 @@ from opental_torch.parallel.dryrun import Ranks, assert_same_proposals
 from opental_torch.parallel.mesh import Mesh
 
 from test_torch_packed_inference import eval_shape_variables
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 CLIP, CROP, STRIDE = 128, 32, 64
 WORLD, BATCH, CAPACITY = 2, 4, 1024

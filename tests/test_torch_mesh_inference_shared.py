@@ -9,6 +9,7 @@ import pytest
 from opental_torch.parallel.dryrun import assert_same_proposals
 
 from test_torch_mesh_inference import mesh_runs
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 MODES = ('shared', 'fused')
 

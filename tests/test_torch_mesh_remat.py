@@ -21,6 +21,7 @@ from opental_torch.train.step import (LossWeights, TrainState,
 from test_torch_mesh_train import (CROP, EPOCH, FRAME, LR, WD, WORLD,
                                    jax_variables, mesh_batch, port_loss,
                                    port_model, train_job)
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 
 def test_remat_with_global_batch_norm(tmp_path, record_property):

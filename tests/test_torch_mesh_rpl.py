@@ -18,6 +18,7 @@ from opental_torch.train.step import (TrainState, make_data_parallel,
                                       make_optimizer, train_step)
 
 from test_torch_mesh_train import CROP, EPOCH, FRAME, LR, WD, mesh_batch
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

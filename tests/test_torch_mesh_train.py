@@ -54,6 +54,7 @@ from opental_torch.utils.convert import from_jax_variables
 from opental_torch.utils.synthetic import make_synthetic_dataset
 
 from test_torch_train_step import EDL, TERMS, numpy_variables
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 FRAME, CROP = 128, 32
 WD = 1e-3

@@ -24,6 +24,7 @@ from opental_torch.train.step import (LossWeights, TrainState,
 from test_torch_mesh_train import (EPOCH, LR, TERMS, WD, WORLD,
                                    jax_mesh_step, jax_variables, mesh_batch,
                                    port_loss, port_model, train_job)
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 STATS = ('running_mean', 'running_var')
 

@@ -26,6 +26,7 @@ import torch
 
 from proposal_matching import assert_proposal_parity
 from test_torch_packed_inference import cli_config, eval_shape_variables
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 from opental_tpu.models.bdnet import BDNet as JBDNet
 from opental_tpu.openset import libmr as jlibmr
@@ -48,14 +49,6 @@ FRAME, CROP = 128, 32
 CLOSED_SET = {'model.use_edl': False, 'model.os_head': False,
               'training.edl_loss': False, 'training.focal_loss': True,
               'testing.top_k': 100}
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _tails(seed, n=6):

@@ -35,6 +35,7 @@ import jax
 import jax.numpy as jnp
 
 from proposal_matching import assert_proposal_parity
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 from opental_tpu.config import load_config as jax_load_config
 from opental_tpu.data.thumos import get_class_index_map, get_video_info
@@ -62,16 +63,6 @@ from opental_torch.tools import threshold as threshold_cli
 CLIP, CROP, STRIDE = 128, 32, 128
 PACKING = {'model.compute_dtype': 'float32', 'testing.packed_batch': 4,
            'testing.packed_frames': 512}
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    """Parallel pytest workers share the host's cores: two threads for
-    this file's many small ops keep the workers from thrashing."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def eval_shape_variables(model, checkpoint_path, sample_shape):

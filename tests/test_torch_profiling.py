@@ -9,6 +9,8 @@ import json
 import pytest
 import torch
 
+from torch_suite import suite_policy  # noqa: F401 (autouse)
+
 from opental_tpu.utils import profiling as jprof
 
 from opental_torch.utils import profiling

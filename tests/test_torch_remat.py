@@ -34,16 +34,7 @@ from opental_torch.utils.convert import from_jax_variables
 
 from test_torch_train_step import (CROP, FRAME, _torch_batch, make_batch,
                                    numpy_variables, setup_pair)
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    """Parallel pytest workers share the host's cores: two threads keep
-    them from thrashing."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 
 def _scalar(out):

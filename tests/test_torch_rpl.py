@@ -27,6 +27,7 @@ import jax.numpy as jnp
 
 from proposal_matching import assert_proposal_parity
 from test_torch_train_step import make_batch, numpy_variables
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 from opental_tpu.config import load_config as jax_load_config
 from opental_tpu.eval.detection import DetectionEvaluator
@@ -62,16 +63,6 @@ RPL = {'model.use_edl': False, 'model.os_head': False,
        'model.use_rpl': True, 'training.edl_loss': False,
        'training.rpl_loss': True}
 GCPL_CFG = {'gcpl': True, 'temperature': 1, 'weight_pl': 0.1}
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    """Two torch threads per pytest worker: the workers share the
-    host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def test_rpl_head_matches_jax():

@@ -27,6 +27,7 @@ import torch
 
 from proposal_matching import assert_proposal_parity
 from test_torch_packed_inference import eval_shape_variables, write_flow
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 from opental_tpu.config import load_config as jax_load_config
 from opental_tpu.data.thumos import get_class_index_map, get_video_info
@@ -47,14 +48,6 @@ CLIP, CROP, STRIDE = 128, 32, 64
 SPAN = STRIDE * 3 + CLIP + 8
 BASE = {'model.compute_dtype': 'float32', 'testing.shared_backbone': True,
         'testing.packed_frames': 1100}
-
-
-@pytest.fixture(scope='module', autouse=True)
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -3,7 +3,9 @@
 One synthetic THUMOS-style dataset, one set of seeded port weights saved
 as a torch .ckpt. `opental_tpu.tools.test.run_test` loads that .ckpt
 through its own converter (convert_bdnet_checkpoint, strict merge: this
-pins the port's state_dict key names) and runs its default CLI mode
+pins the port's state_dict key names; the flax template from
+`jax.eval_shape`, which skips compiling the init) and runs its default
+CLI mode
 (packed device ingest + fused device post) in float32;
 `opental_torch.tools.test.run_test(device='cpu')` runs the port. The
 detection JSONs must agree per proposal, and the JAX package's evaluator
@@ -26,10 +28,12 @@ import pytest
 import torch
 
 from proposal_matching import assert_proposal_parity
+from test_torch_packed_inference import eval_shape_variables
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 from opental_tpu.config import load_config as jax_load_config
 from opental_tpu.eval.detection import DetectionEvaluator
-from opental_tpu.tools.test import run_test as jax_run_test
+from opental_tpu.tools import test as jax_test
 from opental_tpu.utils.synthetic import make_synthetic_dataset
 
 from opental_torch import factory
@@ -64,9 +68,11 @@ def port_run(dataset, tag, **overrides):
 def slice_run(dataset):
     """(root, JAX JSON path, port JSON path)."""
     root, cfg_path, ckpt = dataset
-    jax_path = jax_run_test(jax_load_config(cfg_path, overrides=dict(
-        COMMON, **{'testing.checkpoint_path': ckpt,
-                   'testing.output_json': 'jax.json'})))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_test, 'load_variables', eval_shape_variables)
+        jax_path = jax_test.run_test(jax_load_config(cfg_path, overrides=dict(
+            COMMON, **{'testing.checkpoint_path': ckpt,
+                       'testing.output_json': 'jax.json'})))
     return root, jax_path, port_run(dataset, '')
 
 

@@ -32,6 +32,7 @@ from opental_torch.ops import stem_pack_cuda
 
 from test_torch_layers import TOL, from_ncthw, port_state, randomize, \
     to_ncthw
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 CONV_ATOL = 1e-4
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(

@@ -43,6 +43,7 @@ from opental_torch.utils.convert import from_jax_variables
 
 from test_torch_bdnet import OUT_KEYS
 from test_torch_train_step import EDL, LOSS, make_batch, numpy_variables
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 FRAMES, CROP = 128, 32
 

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 from test_torch_packed_inference import PACKING, cli_config, fusion_dataset
-from test_torch_packed_inference import few_threads  # noqa: F401 (autouse)
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 from opental_tpu.openset import threshold as jax_threshold
 

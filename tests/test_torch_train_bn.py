@@ -14,6 +14,7 @@ from opental_torch.train.step import LossWeights, train_step
 from opental_torch.utils.convert import from_jax_variables
 
 from test_torch_train_step import TERMS, _torch_batch, make_batch, setup_pair
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 
 def test_train_mode_batchnorm_step():

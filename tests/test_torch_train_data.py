@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_suite import suite_policy  # noqa: F401 (autouse)
+
 from opental_tpu.data import thumos as jth
 from opental_tpu.data import transforms as jtf
 from opental_tpu.utils.synthetic import make_synthetic_dataset as jmake

@@ -2,7 +2,8 @@
 dataset: `train` for 2 epochs of 1 step, a checkpoint, `tools.train`
 resuming from it for one more epoch (which saves its own checkpoint and
 the latest link), and the saved weights through `run_test` to a
-detection JSON; and the I3D backbone file overlaid at init."""
+detection JSON (the I3D backbone file overlaid at init:
+`test_torch_train_loop_backbone.py`)."""
 
 import json
 import os
@@ -10,11 +11,13 @@ import os
 import pytest
 import torch
 
+from torch_suite import suite_policy  # noqa: F401 (autouse)
+
 from opental_torch.config import load_config
 from opental_torch.tools import train as train_cli
 from opental_torch.tools.test import run_test
 from opental_torch.train import checkpoint as ckpt
-from opental_torch.train.loop import SAVE_AFTER_EPOCH, init_state, train
+from opental_torch.train.loop import SAVE_AFTER_EPOCH, train
 from opental_torch.utils.synthetic import make_synthetic_dataset
 
 
@@ -76,35 +79,3 @@ def test_saved_weights_run_test(trained):
     assert len(payload['results']) == 1
     props = next(iter(payload['results'].values()))
     assert props and {'label', 'score', 'segment'} <= set(props[0])
-
-
-def test_init_state_overlays_the_backbone_file(tmp_path):
-    """A backbone file (reference `rgb_imagenet.pt` layout: the I3D keys
-    plus its logits layer) is loaded onto the backbone; a file that lacks
-    a backbone key raises."""
-    cfg_path = make_synthetic_dataset(str(tmp_path / 'synth'), n_train=1,
-                                      n_test=1, clip_length=128,
-                                      crop_size=32, spatial=40)
-    plain = init_state(load_config(cfg_path), torch.device('cpu'), seed=0,
-                       frame_num=128, crop_size=32)
-    sd = {k: v + 0.5 if v.is_floating_point() else v
-          for k, v in plain.model.backbone._model.state_dict().items()}
-    sd['logits.conv3d.weight'] = torch.zeros(400, 1024, 1, 1, 1)
-    path = str(tmp_path / 'rgb_imagenet.pt')
-    torch.save(sd, path)
-    cfg = load_config(cfg_path, overrides={'model.backbone_model': path})
-    state = init_state(cfg, torch.device('cpu'), seed=0, frame_num=128,
-                       crop_size=32)
-    got = state.model.backbone._model.state_dict()
-    assert set(got) == set(sd) - {'logits.conv3d.weight'}
-    for k, v in got.items():
-        assert torch.equal(v, sd[k]), k
-    # the head keeps the seeded init
-    for k, v in state.model.coarse_pyramid_detection.state_dict().items():
-        assert torch.equal(
-            v, plain.model.coarse_pyramid_detection.state_dict()[k]), k
-    del sd['Conv3d_1a_7x7.conv3d.weight']
-    torch.save(sd, path)
-    with pytest.raises(KeyError, match='lacks backbone keys'):
-        init_state(cfg, torch.device('cpu'), seed=0, frame_num=128,
-                   crop_size=32)

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_suite import suite_policy  # noqa: F401 (autouse)
+
 import jax
 import jax.numpy as jnp
 

@@ -24,20 +24,11 @@ from opental_torch.train.step import (LossWeights, TrainState,
 from opental_torch.utils.convert import from_jax_variables, map_jax_path
 
 from test_torch_train_step import EDL, LOSS, make_batch, numpy_variables
+from torch_suite import suite_policy  # noqa: F401 (autouse)
 
 FRAMES, CROP, D = 128, 32, 512
 OUT_KEYS = ('loc', 'conf', 'prop_loc', 'prop_conf', 'center', 'act',
             'prop_act', 'unct', 'prop_unct')
-
-
-@pytest.fixture(autouse=True, scope='module')
-def few_threads():
-    """Parallel pytest workers share the host's cores: two threads keep
-    them from thrashing."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _head_state_dict(params, prefix):

@@ -19,7 +19,7 @@ from typing import Dict, Iterator, List
 import numpy as np
 
 from opental_torch.data import transforms
-from opental_torch.data.thumos import MAX_GT, ssl_augment
+from opental_torch.data.thumos import MAX_GT, batches_of, ssl_augment
 
 
 def get_video_info(video_info_path: str, subset: str = 'training'
@@ -172,12 +172,4 @@ class AnetTrainDataset:
 
     def batches(self, batch_size: int, shuffle: bool = True,
                 drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
-        order = list(range(len(self)))
-        if shuffle:
-            self.rng.shuffle(order)
-        for i in range(0, len(order) - (batch_size - 1 if drop_last else 0),
-                       batch_size):
-            chunk = [self.sample(j) for j in order[i:i + batch_size]]
-            if len(chunk) < batch_size and drop_last:
-                break
-            yield {k: np.stack([s[k] for s in chunk]) for k in chunk[0]}
+        return batches_of(self, batch_size, shuffle, drop_last)

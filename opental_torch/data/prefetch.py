@@ -9,7 +9,9 @@ one. `prefetch` builds the training input on it: the thread pins each
 numpy array of a batch and copies it to the card with `non_blocking=True`
 on a side stream, so the copy overlaps the step's kernels; the
 consumer's stream waits on the copy's event before the batch is used. On
-the CPU the arrays are wrapped as they are.
+the CPU the arrays are wrapped as they are. Spans (`utils/profiling`):
+`loader.place` (pin and copy issue, on the thread) and `loader.wait`
+(the consumer blocked on the queue).
 """
 
 from __future__ import annotations
@@ -22,16 +24,21 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from opental_torch.utils import profiling
+
 _DONE = object()
 
 
 def prefetch_items(iterable: Iterable[Any],
                    transform: Optional[Callable[[Any], Any]] = None,
-                   depth: int = 2) -> Iterator[Any]:
+                   depth: int = 2, wait: Optional[str] = None
+                   ) -> Iterator[Any]:
     """Yield `transform(item)` (or the item) for each item, computed
     `depth` items ahead on a background thread that starts at once. An
     exception in the thread re-raises at the consumer; leaving the loop
-    early (or closing the iterator) stops the thread."""
+    early (or closing the iterator) stops the thread. `wait` names the
+    span of the consumer's time blocked on the queue (its request id
+    the item's index)."""
     q: queue.Queue = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
 
@@ -56,12 +63,17 @@ def prefetch_items(iterable: Iterable[Any],
 
     thread = threading.Thread(target=worker, daemon=True,
                               name='opental-torch-prefetch')
+    profiling.refresh()
     thread.start()
 
     def consume():
         try:
+            taken = 0
             while True:
-                item = q.get()
+                with (profiling.span(wait, taken) if wait
+                      else profiling.OFF):
+                    item = q.get()
+                taken += 1
                 if isinstance(item, tuple) and len(item) == 2 \
                         and item[0] is _DONE:
                     if item[1] is not None:
@@ -97,15 +109,17 @@ def prefetch(batches: Iterable[Dict[str, np.ndarray]],
     stream = torch.cuda.Stream(device) if cuda else None
 
     def place(batch):
-        if not cuda:
-            return to_device(batch, device), None
-        with torch.cuda.stream(stream):
-            placed = to_device(batch, device)
-            ready = torch.cuda.Event()
-            ready.record(stream)
-        return placed, ready
+        with profiling.span('loader.place'):
+            if not cuda:
+                return to_device(batch, device), None
+            with torch.cuda.stream(stream):
+                placed = to_device(batch, device)
+                ready = torch.cuda.Event()
+                ready.record(stream)
+            return placed, ready
 
-    with contextlib.closing(prefetch_items(batches, place, depth)) as items:
+    with contextlib.closing(prefetch_items(batches, place, depth,
+                                           wait='loader.wait')) as items:
         for placed, ready in items:
             if ready is not None:
                 current = torch.cuda.current_stream(device)

@@ -17,6 +17,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from opental_torch.data import transforms
+from opental_torch.utils import profiling
 
 MAX_GT = 24          # padded GT slots per clip (max observed ~15 on THUMOS)
 SSL_SEGMENTS = 3
@@ -284,12 +285,25 @@ class ThumosTrainDataset:
 
     def batches(self, batch_size: int, shuffle: bool = True,
                 drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
-        order = list(range(len(self)))
-        if shuffle:
-            self.rng.shuffle(order)
-        for i in range(0, len(order) - (batch_size - 1 if drop_last else 0),
-                       batch_size):
-            chunk = [self.sample(j) for j in order[i:i + batch_size]]
-            if len(chunk) < batch_size and drop_last:
-                break
-            yield {k: np.stack([s[k] for s in chunk]) for k in chunk[0]}
+        return batches_of(self, batch_size, shuffle, drop_last)
+
+
+def batches_of(dataset, batch_size: int, shuffle: bool = True,
+               drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+    """A dataset's samples (`dataset.sample(idx)`, shuffled by its
+    `rng`) stacked into batches. Spans: `loader.sample` per clip (its
+    request id the sample's index) and `loader.collate`."""
+    order = list(range(len(dataset)))
+    if shuffle:
+        dataset.rng.shuffle(order)
+    for i in range(0, len(order) - (batch_size - 1 if drop_last else 0),
+                   batch_size):
+        chunk = []
+        for j in order[i:i + batch_size]:
+            with profiling.span('loader.sample', j):
+                chunk.append(dataset.sample(j))
+        if len(chunk) < batch_size and drop_last:
+            break
+        with profiling.span('loader.collate'):
+            batch = {k: np.stack([s[k] for s in chunk]) for k in chunk[0]}
+        yield batch

@@ -9,6 +9,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from opental_torch.models.bdnet import dirichlet_expected_prob
+from opental_torch.utils import profiling
 
 
 class DecodedWindows(NamedTuple):
@@ -36,37 +37,39 @@ def decode_windows(out: Dict[str, torch.Tensor], clip_length: int,
                    negate_conf: bool = False) -> DecodedWindows:
     """Fuse refined offsets into coarse locs and compose scores
     (test.py:112-140). All shapes (W, P, ...). negate_conf negates the
-    class outputs first: GCPL's scores are negative distances."""
-    loc, prop_loc = out['loc'], out['prop_loc']
-    conf, prop_conf = out['conf'], out['prop_conf']
-    if negate_conf:          # GCPL scores are negative distances (:85-87)
-        conf, prop_conf = -conf, -prop_conf
-    center = out['center'][..., 0]
-    priors = out['priors'][None, :, :1]              # (1, P, 1)
+    class outputs first: GCPL's scores are negative distances. Span
+    `decode`."""
+    with profiling.span('decode'):
+        loc, prop_loc = out['loc'], out['prop_loc']
+        conf, prop_conf = out['conf'], out['prop_conf']
+        if negate_conf:          # GCPL scores are negative distances (:85-87)
+            conf, prop_conf = -conf, -prop_conf
+        center = out['center'][..., 0]
+        priors = out['priors'][None, :, :1]              # (1, P, 1)
 
-    pre_w = loc[..., :1] + loc[..., 1:]
-    loc = 0.5 * pre_w * prop_loc + loc
-    segments = torch.cat([priors * clip_length - loc[..., :1],
-                          priors * clip_length + loc[..., 1:]], dim=-1)
-    segments = torch.clamp(segments, 0.0, clip_length)
+        pre_w = loc[..., :1] + loc[..., 1:]
+        loc = 0.5 * pre_w * prop_loc + loc
+        segments = torch.cat([priors * clip_length - loc[..., :1],
+                              priors * clip_length + loc[..., 1:]], dim=-1)
+        segments = torch.clamp(segments, 0.0, clip_length)
 
-    uncertainty = None
-    if use_edl:
-        uncertainty = (out['unct'] + out['prop_unct']) / 2.0
+        uncertainty = None
+        if use_edl:
+            uncertainty = (out['unct'] + out['prop_unct']) / 2.0
 
-    actionness = None
-    if os_head:
-        actionness = (torch.sigmoid(out['act'][..., 0])
-                      + torch.sigmoid(out['prop_act'][..., 0])) / 2.0
+        actionness = None
+        if os_head:
+            actionness = (torch.sigmoid(out['act'][..., 0])
+                          + torch.sigmoid(out['prop_act'][..., 0])) / 2.0
 
-    if score_func == 'dirichlet':
-        conf = dirichlet_expected_prob(conf, evidence)
-        prop_conf = dirichlet_expected_prob(prop_conf, evidence)
-    else:
-        conf = torch.softmax(conf, dim=-1)
-        prop_conf = torch.softmax(prop_conf, dim=-1)
+        if score_func == 'dirichlet':
+            conf = dirichlet_expected_prob(conf, evidence)
+            prop_conf = dirichlet_expected_prob(prop_conf, evidence)
+        else:
+            conf = torch.softmax(conf, dim=-1)
+            prop_conf = torch.softmax(prop_conf, dim=-1)
 
-    scores = (conf + prop_conf) / 2.0 * torch.sigmoid(center)[..., None]
-    if os_head:
-        scores = scores * actionness[..., None]
-    return DecodedWindows(segments, scores, uncertainty, actionness)
+        scores = (conf + prop_conf) / 2.0 * torch.sigmoid(center)[..., None]
+        if os_head:
+            scores = scores * actionness[..., None]
+        return DecodedWindows(segments, scores, uncertainty, actionness)

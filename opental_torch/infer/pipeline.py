@@ -51,6 +51,7 @@ from opental_torch.infer.decode import (DecodedWindows, decode_windows,
                                         fuse_streams)
 from opental_torch.ops.nms import soft_nms_device, soft_nms_numpy
 from opental_torch.parallel.mesh import Mesh, gather_rows
+from opental_torch.utils import profiling
 
 
 def window_offsets(sample_count: int, clip_length: int,
@@ -403,17 +404,20 @@ class InferencePipeline:
 
     def windows_decode(self, bufs: Sequence[torch.Tensor],
                        offsets: torch.Tensor,
-                       frames_valid: Sequence[Union[int, torch.Tensor]]
-                       ) -> DecodedWindows:
+                       frames_valid: Sequence[Union[int, torch.Tensor]],
+                       flush: Optional[int] = None) -> DecodedWindows:
         """Windows at `offsets` (W,) gathered from each stream's staged
         uint8 buffer (`device_windows`, with that stream's frames-valid:
         a scalar or (W,)) through forward + decode; on a mesh each rank
-        gathers only its share of the windows."""
+        gathers only its share of the windows. Span `infer.forward` (its
+        request id `flush`), counter `infer.rows` (the W rows)."""
         def decode(offs, *fvs):
             return self._forward_decode(*[
                 device_windows(buf, offs, fv, self.clip_length)
                 for buf, fv in zip(bufs, fvs)])
-        return self._sharded(decode, [offsets, *frames_valid])
+        with profiling.span('infer.forward', flush):
+            profiling.count('infer.rows', offsets.shape[0])
+            return self._sharded(decode, [offsets, *frames_valid])
 
     @property
     def span(self) -> int:
@@ -494,6 +498,7 @@ class InferencePipeline:
             valids = [valid for _, valid in staged]
             parts = [self.windows_decode(bufs, offs[i:i + max_batch],
                                          valids) for i in chunks]
+            profiling.count('infer.windows', len(offsets))
         else:
             stacked = [stack_windows(s, offsets, self.clip_length)
                        for s in streams]
@@ -556,25 +561,29 @@ class InferencePipeline:
                           offsets, sample_fps)
 
     def _post(self, dec: DecodedWindows, offsets: Sequence[int],
-              sample_fps: float) -> List[Dict[str, Any]]:
-        if self.device_post:
-            return self.post_process_on_device(dec, offsets, sample_fps)
-        off = np.asarray(offsets, np.float32)[:, None, None]
-        seconds = (dec.segments.float().cpu().numpy() + off) / sample_fps
-
-        def host(a):
-            return None if a is None else a.float().cpu().numpy()
-
-        return self.post_process(seconds, host(dec.scores),
-                                 host(dec.uncertainty),
-                                 host(dec.actionness))
+              sample_fps: float, name: Optional[str] = None
+              ) -> List[Dict[str, Any]]:
+        """One video's proposals from its decoded windows. Span
+        `post.video` (its request id the video's name)."""
+        with profiling.span('post.video', name):
+            if self.device_post:
+                return self.post_process_on_device(dec, offsets, sample_fps)
+            off = np.asarray(offsets, np.float32)[:, None, None]
+            with profiling.span('post.fetch'):
+                seconds = (dec.segments.float().cpu().numpy() + off) \
+                    / sample_fps
+                conf, unct, act = [
+                    None if a is None else a.float().cpu().numpy()
+                    for a in (dec.scores, dec.uncertainty, dec.actionness)]
+            return self.post_process(seconds, conf, unct, act)
 
     def _finish_packed(self, vid: Dict[str, Any],
                        results: Dict[str, List[Dict[str, Any]]]) -> None:
         """Post-process one finished video from its collected decode
         rows (still on the device), as run_video does."""
         results[vid['name']] = self._post(_cat_decoded(vid['got']),
-                                          vid['offsets'], vid['fps'])
+                                          vid['offsets'], vid['fps'],
+                                          vid['name'])
 
     # -------------------------------------------------------- per dataset
 
@@ -708,12 +717,19 @@ class InferencePipeline:
 
         def plans():
             staged: List[Dict[str, Any]] = []
-            cursor = 0
+            cursor = flush = 0
 
             def close():
-                nonlocal staged, cursor
+                nonlocal staged, cursor, flush
+                with profiling.span('ingest.plan', flush,
+                                    videos=len(staged), frames=cursor):
+                    plan = assemble()
+                staged, cursor, flush = [], 0, flush + 1
+                return plan
+
+            def assemble():
                 plan = {'cap': -(-max(cursor, 1) // frames_capacity)
-                        * frames_capacity, 'vids': staged}
+                        * frames_capacity, 'vids': staged, 'flush': flush}
                 offs, fvs = [], [[] for _ in staged[0]['streams']]
                 for j, s in enumerate(staged[0]['streams']):
                     # filled through a numpy view of the (pinned) buffer
@@ -739,7 +755,6 @@ class InferencePipeline:
                 plan['offs'] = np.concatenate(offs + [pad])
                 for j, fv in enumerate(fvs):
                     plan[f'fv{j}'] = np.concatenate(fv + [pad])
-                staged, cursor = [], 0
                 return plan
 
             for item in videos:
@@ -773,8 +788,9 @@ class InferencePipeline:
         def stage(plan):
             """Host plan -> device tensors, on the side stream (runs on
             the prefetch thread)."""
-            with (torch.cuda.stream(side) if cuda
-                  else contextlib.nullcontext()):
+            with profiling.span('ingest.stage', plan['flush']), \
+                    (torch.cuda.stream(side) if cuda
+                     else contextlib.nullcontext()):
                 for j in range(n_streams):
                     plan[f'buf{j}'] = stage_frames(
                         plan.pop(f'host{j}'), pad_to=plan['cap'],
@@ -787,7 +803,8 @@ class InferencePipeline:
             return plan
 
         with contextlib.closing(prefetch_items(
-                plans(), transform=stage, depth=2)) as staged_plans:
+                plans(), transform=stage, depth=2,
+                wait='ingest.wait')) as staged_plans:
             for plan in staged_plans:
                 if cuda:
                     current = torch.cuda.current_stream(self.device)
@@ -800,10 +817,10 @@ class InferencePipeline:
                         [plan[f'buf{j}'] for j in range(n_streams)],
                         plan['offs'][i:i + max_batch],
                         [plan[f'fv{j}'][i:i + max_batch]
-                         for j in range(n_streams)])
-                    vi = _route_rows(vids, dec,
-                                     max(0, min(max_batch, plan['n'] - i)),
-                                     vi)
+                         for j in range(n_streams)], plan['flush'])
+                    real = max(0, min(max_batch, plan['n'] - i))
+                    profiling.count('infer.windows', real)
+                    vi = _route_rows(vids, dec, real, vi)
                 for vid in vids:
                     self._finish_packed(vid, results)
                 del plan
@@ -887,7 +904,24 @@ class InferencePipeline:
                                offsets: Sequence[int], sample_fps: float
                                ) -> List[Dict[str, Any]]:
         """Seconds shift + per-class top-k preselect + batched soft-NMS of
-        every class at once, on the device; the host formats kept rows."""
+        every class at once, on the device; the host formats kept rows.
+        Spans `post.preselect`, `post.soft_nms`, `post.fetch` (the kept
+        blocks' copy to the host) and `post.format`."""
+        with profiling.span('post.preselect'):
+            cls_cols, cands, valid = self._preselect(dec, offsets,
+                                                     sample_fps)
+        with profiling.span('post.soft_nms'):
+            blocks, _ = soft_nms_device(cands, sigma=self.nms_sigma,
+                                        top_k=self.top_k, valid=valid)
+        with profiling.span('post.fetch'):
+            blocks = blocks.cpu().numpy()                      # (C, k, D+1)
+        with profiling.span('post.format'):
+            return self._format(blocks, cls_cols)
+
+    def _preselect(self, dec: DecodedWindows, offsets: Sequence[int],
+                   sample_fps: float):
+        """(the class columns, each class's top-k candidates (C, k, D)
+        with seconds, score and extras, their validity (C, k))."""
         k = self.num_classes
         cls_cols = list(range(k)) if self.os_head else list(range(1, k))
         segments, scores = dec.segments, dec.scores
@@ -914,10 +948,11 @@ class InferencePipeline:
         top_sc, idx = top_sc[:, :k_eff], idx[:, :k_eff]
         cols = [seconds[idx], top_sc[..., None].float()]
         cols += [e[idx][..., None].float() for e in extras]
-        blocks, _ = soft_nms_device(torch.cat(cols, dim=-1),
-                                    sigma=self.nms_sigma, top_k=self.top_k,
-                                    valid=top_sc > 0)
-        blocks = blocks.cpu().numpy()                          # (C, k, D+1)
+        return cls_cols, torch.cat(cols, dim=-1), top_sc > 0
+
+    def _format(self, blocks: np.ndarray, cls_cols: Sequence[int]
+                ) -> List[Dict[str, Any]]:
+        """The kept rows of each class's soft-NMS block as proposals."""
         proposals: List[Dict[str, Any]] = []
         for ci, cl in enumerate(cls_cols):
             kept = blocks[ci]
@@ -978,7 +1013,8 @@ class InferencePipeline:
                 cols.append(flat_unct[mask][:, None])
             if self.os_head:
                 cols.append(flat_act[mask][:, None])
-            kept = self._soft_nms(np.concatenate(cols, axis=1))
+            with profiling.span('post.soft_nms'):
+                kept = self._soft_nms(np.concatenate(cols, axis=1))
             cl_idx = cl + 1 if self.os_head else cl
             for row in kept:
                 if row[2] <= 0:
@@ -1019,7 +1055,8 @@ def infer_videos(pipe: InferencePipeline, te: dict, video_infos: dict,
             item += (np.load(os.path.join(flow_path, name + '.npy')),)
         return item
 
-    with contextlib.closing(prefetch_items(names, load)) as videos:
+    with contextlib.closing(prefetch_items(names, load,
+                                           wait='loader.wait')) as videos:
         if te.get('packed', True):
             return pipe.run_videos(videos,
                                    max_batch=te.get('packed_batch', 128),

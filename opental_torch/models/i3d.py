@@ -11,7 +11,8 @@ The JAX package's XLA space-to-depth (pack24 + conv3d), temporal-fold and
 decomposed variants are TPU layouts of the same math and are not ported.
 `remat` recomputes each block (the stem, each Unit3D, each
 InceptionModule) in the backward instead of keeping its activations
-(`model.remat`, `opental_tpu/models/i3d.py:135-160`).
+(`model.remat`, `opental_tpu/models/i3d.py:135-160`). Each endpoint's
+forward is the span `model.backbone.<endpoint>` (`utils/profiling`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from opental_torch.models.layers import (Unit3D, bn_recompute,
                                          max_pool_3d_same)
+from opental_torch.utils import profiling
 
 # branch output channels per inception module (i3d_backbone.py:229-295)
 INCEPTION_SPECS: Dict[str, Sequence[int]] = {
@@ -44,6 +46,8 @@ ENDPOINTS: Tuple[str, ...] = (
     'Mixed_4b', 'Mixed_4c', 'Mixed_4d', 'Mixed_4e', 'Mixed_4f',
     'MaxPool3d_5a_2x2', 'Mixed_5b', 'Mixed_5c',
 )
+
+BLOCK_SPANS = {ep: 'model.backbone.' + ep for ep in ENDPOINTS}
 
 MAXPOOL_SPECS = {
     'MaxPool3d_2a_3x3': ((1, 3, 3), (1, 2, 2)),
@@ -116,16 +120,18 @@ class InceptionI3d(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
         for ep in ENDPOINTS:
-            if ep in MAXPOOL_SPECS:
-                x = max_pool_3d_same(x, *MAXPOOL_SPECS[ep])
-            elif self.remat and torch.is_grad_enabled():
-                # the recompute leaves BN's running statistics as the
-                # first pass left them (`bn_recompute`), as JAX's
-                # functional nn.remat does
-                x = checkpoint(getattr(self, ep), x, use_reentrant=False,
-                               context_fn=bn_recompute)
-            else:
-                x = getattr(self, ep)(x)
+            with profiling.span(BLOCK_SPANS[ep]):
+                if ep in MAXPOOL_SPECS:
+                    x = max_pool_3d_same(x, *MAXPOOL_SPECS[ep])
+                elif self.remat and torch.is_grad_enabled():
+                    # the recompute leaves BN's running statistics as the
+                    # first pass left them (`bn_recompute`), as JAX's
+                    # functional nn.remat does
+                    x = checkpoint(getattr(self, ep), x,
+                                   use_reentrant=False,
+                                   context_fn=bn_recompute)
+                else:
+                    x = getattr(self, ep)(x)
             if ep in self.KEEP:
                 out[ep] = x
         return out

@@ -22,7 +22,8 @@ heads' inputs, `ctr_feat` and `prop_ctr_feat` (B, P, 512), to the
 out_dict (`opental_tpu/models/pyramid.py:218-233, 262-303`).
 `transformer` makes the conf head a `TransformerHead` (channels-last,
 float32; `opental_tpu/models/pyramid.py:184-187`); `prop_conf_head`
-stays a Unit1D.
+stays a Unit1D. Spans (`utils/profiling`): `model.pyramid` (the level
+features and the frame-level deconv stack) and `model.heads` (the rest).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from opental_torch.models.layers import (ConvGNReLU1D, GroupNorm32,
                                          Unit1D, Unit3D,
                                          interpolate_nearest_1d)
 from opental_torch.ops.boundary_pool import boundary_max_pool_segmented
+from opental_torch.utils import profiling
 
 LAYER_NUM = 6
 CONV_CHANNELS = 512
@@ -261,9 +263,18 @@ class CoarsePyramid(nn.Module):
 
     def forward(self, feat_dict: Dict[str, torch.Tensor], ssl: bool = False,
                 get_feat: bool = False) -> Dict[str, Any]:
-        feats = self.level_features(feat_dict)
-        frame_level = self.deconv(interpolate_nearest_1d(feats[0],
-                                                         self.frame_num))
+        with profiling.span('model.pyramid'):
+            feats = self.level_features(feat_dict)
+            frame_level = self.deconv(interpolate_nearest_1d(
+                feats[0], self.frame_num))
+        with profiling.span('model.heads'):
+            return self._heads(feats, frame_level, ssl, get_feat)
+
+    def _heads(self, feats: List[torch.Tensor], frame_level: torch.Tensor,
+               ssl: bool, get_feat: bool) -> Dict[str, Any]:
+        """The towers, heads, pools and refinement on the level features
+        and the frame-level feature: the out_dict (or the SSL pass's
+        triplet features)."""
         frame_tc = _channels_last(frame_level).contiguous()  # (B, T, 512)
         half = CONV_CHANNELS // 2
         out: Dict[str, Any] = {'start': frame_tc[..., :half],

@@ -10,7 +10,9 @@ lax.while_loop version on fixed-shape blocks, batched over a leading
 axis (one row per class), in plain PyTorch on the blocks' device. It
 checks for termination once every `check_every` picks, so the loop
 syncs the host that rarely instead of once per pick; a row that has
-finished is left unchanged by the extra steps.
+finished is left unchanged by the extra steps. Counter
+(`utils/profiling`): `nms.steps`, the pick loop's iterations run, once
+a call.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from opental_torch.utils import profiling
 
 SCORE_FLOOR = 1e-3
 
@@ -80,11 +84,13 @@ def soft_nms_device(segments: torch.Tensor, sigma: float = 0.5,
     cols = torch.arange(n, device=seg.device)
     neg_inf = torch.tensor(float('-inf'), device=seg.device,
                            dtype=scores.dtype)
-    for step in range(min(n, top_k)):
+    steps = min(n, top_k)
+    for step in range(steps):
         # after every step undone implies score >= threshold, so the JAX
         # loop's active set is `undone`
         go = (undone.sum(-1) > 1) & (count < top_k)
         if step % check_every == 0 and not bool(go.any()):
+            steps = step
             break
         idx = torch.where(undone, scores, neg_inf).argmax(-1, keepdim=True)
         pick = (cols == idx) & go[:, None]
@@ -100,6 +106,7 @@ def soft_nms_device(segments: torch.Tensor, sigma: float = 0.5,
         scores = torch.where(undone & go[:, None], scores * decay, scores)
         undone &= scores >= score_threshold
         count += go.long()
+    profiling.count('nms.steps', steps)
     out = torch.cat([seg[..., :2], scores[..., None], seg[..., 3:],
                      kept[..., None].to(seg.dtype)], dim=-1)
     return out.reshape(batch_shape + (n, d + 1)), count.reshape(batch_shape)

@@ -26,6 +26,7 @@ from opental_torch.losses.multisegment import LossConfig, multisegment_loss
 from opental_torch.models import layers
 from opental_torch.models.bdnet import UNBATCHED_OUTPUTS
 from opental_torch.parallel.mesh import Mesh, gather_rows, replicate
+from opental_torch.utils import profiling
 
 SSL_SCALE_WEIGHTS = (1.0, 0.1, 0.1)
 
@@ -282,13 +283,16 @@ def _step_losses(state: TrainState, loss_cfg: LossConfig,
     passes = state.ddp or TrainPasses(state.model)
     module = getattr(passes, 'module', passes)      # inside DDP or not
     with layers.global_batch_stats(state.mesh):
-        out, trip, targets = _global_batch(
-            state.mesh, *run_passes(passes, weights, batch, fuse_ssl),
-            batch)
-        cost, metrics, new_edl = losses_of_outputs(
-            loss_cfg, weights, dict(out, **module.shared), trip, targets,
-            state.edl_state, epoch)
-        cost.backward()
+        with profiling.span('step.forward'):
+            out, trip, targets = _global_batch(
+                state.mesh, *run_passes(passes, weights, batch, fuse_ssl),
+                batch)
+        with profiling.span('step.loss'):
+            cost, metrics, new_edl = losses_of_outputs(
+                loss_cfg, weights, dict(out, **module.shared), trip,
+                targets, state.edl_state, epoch)
+        with profiling.span('step.backward'):
+            cost.backward()
     return metrics, new_edl
 
 
@@ -301,21 +305,28 @@ def train_step(state: TrainState, loss_cfg: LossConfig,
     Updates `state` in place and returns the detached metrics (loss
     terms, cost, grad_norm; on a mesh those of the global batch, equal
     on every rank) as device tensors: reading them is the caller's
-    synchronisation. fuse_ssl: as `compute_losses`."""
-    model = state.model
-    model.train()
-    batch = device_ingest(batch)
-    state.optimizer.zero_grad(set_to_none=True)
-    metrics, new_edl = _step_losses(state, loss_cfg, weights, batch, epoch,
-                                    fuse_ssl)
-    for p in model.parameters():
-        if p.grad is None:
-            # a parameter off this step's graph still takes weight decay,
-            # as the JAX step's zero gradient does
-            p.grad = torch.zeros_like(p)
-    # read after DDP's reduction: the global gradient's norm on every rank
-    metrics['grad_norm'] = global_norm(p.grad for p in model.parameters())
-    state.optimizer.step()
-    state.edl_state = new_edl
-    state.step += 1
-    return {k: v.detach() for k, v in metrics.items()}
+    synchronisation. fuse_ssl: as `compute_losses`. Spans: `step` (its
+    request id the step count), with `step.ingest`, `step.forward`,
+    `step.loss`, `step.backward` and `step.optimizer` inside."""
+    with profiling.span('step', state.step):
+        model = state.model
+        model.train()
+        with profiling.span('step.ingest'):
+            batch = device_ingest(batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        metrics, new_edl = _step_losses(state, loss_cfg, weights, batch,
+                                        epoch, fuse_ssl)
+        with profiling.span('step.optimizer'):
+            for p in model.parameters():
+                if p.grad is None:
+                    # a parameter off this step's graph still takes weight
+                    # decay, as the JAX step's zero gradient does
+                    p.grad = torch.zeros_like(p)
+            # read after DDP's reduction: the global gradient's norm on
+            # every rank
+            metrics['grad_norm'] = global_norm(p.grad
+                                               for p in model.parameters())
+            state.optimizer.step()
+        state.edl_state = new_edl
+        state.step += 1
+        return {k: v.detach() for k, v in metrics.items()}

@@ -1,0 +1,11 @@
+"""Post-processing: the share of the traced window in which the card is
+idle while the main thread is inside the program's `post.*` spans (each
+video's preselect, soft-NMS, fetch and formatting), in %."""
+
+from tal_bench.metrics import _program
+
+
+def read(run):
+    if run.kind != 'infer':
+        return None
+    return _program.idle_in_pct(run, ('post.',))

@@ -1,8 +1,10 @@
 """`opental_torch.utils.profiling` on the CPU: `trace` writes a non-empty
-Chrome trace of what ran in its block; `PhaseTimer` writes the JSON keys
-of the JAX package's timer (`opental_tpu/utils/profiling.py`) with the
-same means; `device_memory_stats` has the JAX key names (and, without a
-card, no entry)."""
+Chrome trace of what ran in its block, with the program's spans on rows
+of their own at the profiler's times and its counters as counter
+tracks; `PhaseTimer` writes the JSON keys of the JAX package's timer
+(`opental_tpu/utils/profiling.py`) with the same means;
+`device_memory_stats` has the JAX key names (and, without a card, no
+entry). The recorder itself: `tests/test_torch_tracing.py`."""
 
 import json
 
@@ -69,3 +71,35 @@ def test_device_memory_stats():
     for s in stats.values():
         assert set(s) == {'bytes_in_use', 'peak_bytes_in_use'}
 
+
+def test_trace_writes_the_spans_into_its_chrome_file(tmp_path):
+    x = torch.randn(256, 256)
+    with profiling.trace(str(tmp_path)):
+        with profiling.span('matmul', 'r1', n=1):
+            x @ x
+    with open(tmp_path / profiling.TRACE_FILE) as f:
+        events = json.load(f)['traceEvents']
+    mine = [e for e in events if e.get('cat') == 'opental_torch']
+    assert [e['name'] for e in mine] == ['matmul']
+    assert mine[0]['args'] == {'n': 1, 'rid': 'r1'}
+    mm = [e for e in events if e.get('name') == 'aten::mm']
+    assert mm and all(mine[0]['ts'] <= e['ts'] <= mine[0]['ts']
+                      + mine[0]['dur'] for e in mm)
+    assert mine[0]['tid'] != mm[0]['tid']
+    rows = [e for e in events if e.get('ph') == 'M'
+            and e.get('tid') == mine[0]['tid']]
+    assert rows and rows[0]['args']['name'].startswith('opental_torch spans')
+
+
+def test_trace_writes_the_counters_into_its_chrome_file(tmp_path):
+    with profiling.trace(str(tmp_path)):
+        profiling.count('rows', 3)
+        torch.ones(4).sum()
+        profiling.count('rows', 2)
+    with open(tmp_path / profiling.TRACE_FILE) as f:
+        events = json.load(f)['traceEvents']
+    track = [e for e in events if e.get('ph') == 'C'
+             and e.get('cat') == 'opental_torch']
+    assert [(e['name'], e['args']) for e in track] == [
+        ('rows', {'rows': 3}), ('rows', {'rows': 5})]
+    assert track[0]['ts'] <= track[1]['ts']

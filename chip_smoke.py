@@ -163,6 +163,16 @@ Phases (any failure ends the run with a non-zero exit):
      settings (bf16, packed_batch 128) == one process at the ranks'
      forward width (packed_batch 128 / ranks), and its windows/s beside
      one process at the shipped settings (one, mesh, one)
+ 40. B5, the soft-NMS kernel (csrc/soft_nms.cu), vs the plain loop
+     (ops/nms.soft_nms_plain) at the inference cells' shape (15 classes
+     x 2,048 candidates x 5 columns, every one valid: the saturated
+     load), on clustered rows at sigma 1.7 (whose reciprocal is not
+     exact in float) and on a row of 16,384 (held in the output, not in
+     registers): kept flags and picks exactly, every value to a
+     relative 1e-6; the kernel's device time, the plain loop's time (it
+     runs right after phase 1). Phases 6, 9, 16 and 24 hold B5 to one
+     launch per post-processed video (per ANet batch); the kernels line
+     counts those launches only
 Phases 8 and 9 run with model.stem_pallas off and on. Then a `kernels`
 JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Weights and data are random, made from
@@ -202,7 +212,8 @@ from opental_torch.models import pyramid  # noqa: E402
 from opental_torch.models import layers  # noqa: E402
 from opental_torch.models.bdnet import BDNet  # noqa: E402
 from opental_torch.ops import (_build, boundary_pool,  # noqa: E402
-                               boundary_pool_cuda, stem_pack, stem_pack_cuda)
+                               boundary_pool_cuda, nms, soft_nms_cuda,
+                               stem_pack, stem_pack_cuda)
 from opental_torch.openset import libmr  # noqa: E402
 from opental_torch.openset.openmax import weibull_fitting  # noqa: E402
 from opental_torch.parallel.dryrun import (  # noqa: E402
@@ -444,6 +455,97 @@ def tf32_off():
         torch.cuda.empty_cache()
 
 
+def soft_nms_rows(rows: int, n: int, d: int, seed: int) -> torch.Tensor:
+    """(rows, n, d) soft-NMS candidates on the card, all over the floor and
+    overlapping little, so that nearly every one is picked, as in the
+    inference cells (whose rows take 2,047 picks of 2,048)."""
+    rng = np.random.RandomState(seed)
+    start = rng.uniform(0, 10.0 * n, (rows, n))
+    cols = [start, start + rng.uniform(1, 20, (rows, n)),
+            rng.uniform(0.01, 1, (rows, n))]
+    cols += [rng.uniform(0, 1, (rows, n)) for _ in range(d - 3)]
+    return torch.from_numpy(np.stack(cols, -1).astype(np.float32)).cuda()
+
+
+def clustered_rows(rows: int, n: int, d: int, seed: int, video_s: float
+                   ) -> torch.Tensor:
+    """(rows, n, d) soft-NMS candidates on the card in clusters of
+    overlapping windows over a video of `video_s` seconds (the card
+    tests' `saturated` rows): each pick decays its neighbours, so the
+    decay's arithmetic decides which candidate is picked next."""
+    rng = np.random.RandomState(seed)
+    centre = rng.uniform(0, video_s, (rows, n // 16 + 1))
+    pick = rng.randint(0, centre.shape[1], (rows, n))
+    mid = np.take_along_axis(centre, pick, 1) + rng.normal(0, 3, (rows, n))
+    half = rng.uniform(0.25, 12, (rows, n))
+    cols = [mid - half, mid + half, rng.uniform(0.01, 1, (rows, n))]
+    cols += [rng.uniform(0, 1, (rows, n)) for _ in range(d - 3)]
+    return torch.from_numpy(np.stack(cols, -1).astype(np.float32)).cuda()
+
+
+def hold_soft_nms(seg, valid, sigma: float, label: str):
+    """B5 against the plain loop on one batch: kept flags and picks
+    exactly, every value to a relative 1e-6 (the card tests' rtol).
+    Returns (the largest relative difference, the longest row's picks,
+    the plain loop's ms)."""
+    args = (sigma, 5000, nms.SCORE_FLOOR)        # sigma, top_k, floor
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_count = nms.soft_nms_plain(seg, *args, valid=valid)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got, count = soft_nms_cuda.soft_nms(seg, valid, *args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[..., -1], want[..., -1])
+            and torch.equal(count, want_count)):
+        raise AssertionError(f'soft-NMS kernel != plain loop ({label}): '
+                             'kept flags or picks differ')
+    err = ((got - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+    if not err <= 1e-6:
+        raise AssertionError(f'soft-NMS kernel != plain loop ({label}): '
+                             f'relative difference {err!r}')
+    picks = int(count.max())
+    log(f'{label}, sigma {sigma}: kernel == plain loop on kept flags and '
+        f'picks ({picks} picks in the longest row), max relative '
+        f'difference {err!r}; plain loop {plain_ms:.1f} ms')
+    return err, picks, plain_ms
+
+
+def phase_soft_nms():
+    log('== phase 40: soft-NMS kernel (B5) vs the plain loop at (15, 2048, '
+        '5), saturated, and on clustered rows at sigma 1.7, in registers '
+        'and (16,384 candidates a row) in the output')
+    seg = soft_nms_rows(15, 2048, 5, 0)
+    valid = torch.ones(seg.shape[:-1], dtype=torch.bool, device='cuda')
+    err, picks, _ = hold_soft_nms(seg, valid, 0.5, '(15, 2048, 5) spread')
+    args = (0.5, 5000, nms.SCORE_FLOOR)
+    ms = device_ms(lambda: soft_nms_cuda.soft_nms(seg, valid, *args),
+                   reps=20)
+    plain_ms = time_ms(lambda: nms.soft_nms_plain(seg, *args, valid=valid),
+                       reps=3, warmup=1)
+    out = {'ms': ms, 'picks': picks, 'plain_ms': plain_ms,
+           'bound_ms': (seg.numel() + seg[..., :1].numel() * 6) * 4
+           / HBM_BYTES_PER_S * 1e3}
+    clustered = clustered_rows(15, 2048, 5, 1, 200.0)
+    err_c, _, _ = hold_soft_nms(clustered, valid, 1.7,
+                                '(15, 2048, 5) clustered')
+    wide = clustered_rows(1, 16384, 5, 2, 1800.0)
+    wide_valid = torch.arange(16384, device='cuda')[None] < 9000
+    err_w, picks_w, plain_w = hold_soft_nms(
+        wide, wide_valid, 1.7, '(1, 9000 of 16384, 5) clustered')
+    wide_ms = device_ms(lambda: soft_nms_cuda.soft_nms(
+        wide, wide_valid, 1.7, 5000, nms.SCORE_FLOOR), reps=5)
+    out['max_rel_err'] = max(err, err_c, err_w)
+    out['wide'] = {'ms': wide_ms, 'picks': picks_w, 'plain_ms': plain_w}
+    log(f'kernel {ms:.4f} device ms at (15, 2048, 5) ({ms / picks * 1e3:.3f} '
+        f'us a pick), plain loop {plain_ms:.1f} ms; bytes bound '
+        f'{out["bound_ms"]:.6f} ms (the kernel is bound by its picks\' '
+        f'latency); 16,384 a row in the output: {wide_ms:.4f} device ms for '
+        f'{picks_w} picks ({wide_ms / max(picks_w, 1) * 1e3:.3f} us a '
+        f'pick), plain loop {plain_w:.1f} ms; {card_line()}')
+    return out
+
+
 def phase_kernel_vs_plain(calls):
     log('== phase 2: grouped boundary_max_pool_fwd (B1) vs plain version '
         'on the card')
@@ -665,6 +767,7 @@ def phase_end_to_end(state_dict, root):
     launches = boundary_pool_cuda.LAUNCHES
     assert boundary_pool_cuda.BWD_LAUNCHES == 0, 'backward in inference'
     assert pack_launches() == 0, 'stem pack with model.stem_pallas off'
+    hold_b5(len(lengths), 'phase 6')
     n_props = check_detection_json(path, lengths)
     assert launches == POOLS_PER_FORWARD * n_forwards, (launches,
                                                         n_forwards)
@@ -672,7 +775,8 @@ def phase_end_to_end(state_dict, root):
         f'wall {wall:.3f} s, {n_windows / wall:.2f} windows/s (first run, '
         f'includes video load, upload and post-processing)')
     log(f'boundary_max_pool_fwd launches in this run: {launches} '
-        f'({n_forwards} forwards x {POOLS_PER_FORWARD})')
+        f'({n_forwards} forwards x {POOLS_PER_FORWARD}); soft_nms '
+        f'{len(lengths)} (one a video)')
     cfg.testing['output_json'] = 'warm.json'
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -762,10 +866,12 @@ def phase_throughput(state_dict, root, lengths):
     pipe = pipes[False]
     del pipes[True]
     torch.cuda.empty_cache()
-    nms_ms = []
+    nms_ms, decoded = [], []
+    reset_counts()
     for name, t in lengths.items():
         data = np.load(os.path.join(root, 'test_npy', name + '.npy'))
         dec, offsets = pipe.decode_video(data, t, max_batch=128)
+        decoded.append((dec, offsets))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         props = pipe.post_process_on_device(dec, offsets, 10.0)
@@ -774,10 +880,15 @@ def phase_throughput(state_dict, root, lengths):
         log(f'post-process (top-k preselect + soft-NMS) {name}: '
             f'{len(offsets)} windows, {len(props)} proposals, '
             f'{nms_ms[-1]:.1f} ms')
+    hold_b5(len(lengths), 'phase 9')
     log(f'soft-NMS post-process mean per video: '
-        f'{sum(nms_ms) / len(nms_ms):.1f} ms')
-    profile_device(lambda: pipe.post_process_on_device(dec, offsets, 10.0),
-                   f'post-process {name}')
+        f'{sum(nms_ms) / len(nms_ms):.1f} ms, one soft_nms launch a video')
+    # every video 3 times in one profile: with the kernel (B5) one video
+    # takes ~30 ms, and a window that short at the end of the script came
+    # back with no device activity, unlike the ~0.2 s windows before it
+    profile_device(lambda: [pipe.post_process_on_device(d, o, 10.0)
+                            for d, o in decoded * 3],
+                   f'post-process of the {len(decoded)} videos x 3')
 
 
 # ---------------------------------------------------------------- training
@@ -1184,6 +1295,20 @@ def pack_launches() -> int:
 def reset_counts():
     boundary_pool_cuda.LAUNCHES = boundary_pool_cuda.BWD_LAUNCHES = 0
     stem_pack_cuda.V1_LAUNCHES = stem_pack_cuda.V2_LAUNCHES = 0
+    soft_nms_cuda.LAUNCHES = 0
+
+
+B5_MAIN = []      # B5 launches of the main-path runs that post-process
+
+
+def hold_b5(want: int, label: str) -> int:
+    """B5's launches since the last reset_counts(), held to `want` (one
+    per post-processed video, or per ANet batch) and added to the
+    kernels line's count."""
+    got = soft_nms_cuda.LAUNCHES
+    assert got == want, (label, got, want)
+    B5_MAIN.append(got)
+    return got
 
 
 def pack_bound_ms(xp: torch.Tensor, a_t: int = 4) -> float:
@@ -1769,6 +1894,7 @@ def phase_packed(root, dirs, videos):
     path, wall, cnt, peak = timed_run(cfgs['packed'])
     n_props = check_detection_json(path, videos)
     assert cnt == (POOLS_PER_FORWARD * forwards, 0, 0, 0), (cnt, forwards)
+    hold_b5(len(videos), 'phase 16 packed')
     launches = cnt[0]
     log(f'{n_windows} windows in {flushes} flushes, {forwards} forwards of '
         f'{PACKED_BATCH} (at least {full} full); B1 launches {cnt[0]} '
@@ -1784,6 +1910,7 @@ def phase_packed(root, dirs, videos):
         check_detection_json(path, videos)
         walls[mode].append(wall)
         peaks[mode] = max(peaks.get(mode, 0.0), peak)
+        hold_b5(len(videos), f'phase 16 {mode}')
         if mode == 'packed':
             assert cnt[0] == POOLS_PER_FORWARD * forwards, cnt
     for mode, ws in walls.items():
@@ -2408,10 +2535,12 @@ def phase_anet_inference(state_dict, root):
         'testing.output_json': 'first.json'})
     n_props = check_anet_json(path, durations)
     assert cnt == (POOLS_PER_FORWARD * forwards, 0, 0, 0), (cnt, forwards)
+    hold_b5(forwards, 'phase 24')
     launches += cnt[0]
     log(f'first run: {n_props} proposals, {wall:.3f} s, '
         f'{n_videos / wall:.2f} videos/s, B1 {cnt[0]} launches '
-        f'({POOLS_PER_FORWARD} x {forwards} forwards), peak {peak:.2f} GiB')
+        f'({POOLS_PER_FORWARD} x {forwards} forwards), soft_nms {forwards} '
+        f'(one a batch), peak {peak:.2f} GiB')
     walls = []
     for i in range(2):
         path, wall, cnt, peak_w = anet_run(cfg_path, overrides={
@@ -4240,11 +4369,13 @@ def main() -> int:
     log(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
         f'CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}')
     t0 = time.perf_counter()
-    _build.build_all([boundary_pool_cuda.NAME, stem_pack_cuda.NAME])
+    _build.build_all([boundary_pool_cuda.NAME, stem_pack_cuda.NAME,
+                      soft_nms_cuda.NAME])
     log(f'kernels built in {time.perf_counter() - t0:.2f} s '
         f'(nvcc {_build.BUILD_SECONDS})')
     for name, text in _build.BUILD_LOG.items():
         log(f'-- {name}.cu ptxas:\n{text.strip()}')
+    soft = phase_soft_nms()
     t0 = time.perf_counter()
     log(f'libmr (OpenMax\'s Weibull fits, host code) built with g++ into '
         f'{os.path.relpath(libmr.build())} in '
@@ -4422,7 +4553,13 @@ def main() -> int:
         'launches': v2_launches, 'max_abs_err': pack_err['v2'],
         'ms': v2['ms'], 'plain_ms': v2['plain_ms'],
         'bound_ms': v2['bound_ms'], 'bound_by': 'bytes',
-        'library_ms': v2['library_ms']}]}), flush=True)
+        'library_ms': v2['library_ms']}, {
+        'name': 'soft_nms', 'route': 'cuda',
+        'source': 'opental_torch/csrc/soft_nms.cu', 'replaces': None,
+        'launches': sum(B5_MAIN),
+        'max_rel_err': soft['max_rel_err'], 'ms': soft['ms'],
+        'plain_ms': soft['plain_ms'], 'bound_ms': soft['bound_ms'],
+        'bound_by': 'latency', 'library_ms': None}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -7,12 +7,20 @@ exp(-iou^2 / sigma), score floor 1e-3, top-k cap, extra columns
 
 `soft_nms_device` runs the same greedy recursion as the JAX package's
 lax.while_loop version on fixed-shape blocks, batched over a leading
-axis (one row per class), in plain PyTorch on the blocks' device. It
-checks for termination once every `check_every` picks, so the loop
-syncs the host that rarely instead of once per pick; a row that has
-finished is left unchanged by the extra steps. Counter
-(`utils/profiling`): `nms.steps`, the pick loop's iterations run, once
-a call.
+axis (one row per class, or per (video, class)), and picks its path by
+the blocks' device:
+* blocks on the card take the hand kernel (`ops/soft_nms_cuda.py`,
+  `csrc/soft_nms.cu`): every block's whole pick loop in one launch, of
+  any length, with no synchronisation (half-precision blocks are
+  widened to float32 first; other dtypes raise);
+* blocks on the CPU take `soft_nms_plain`, the loop in plain PyTorch:
+  ~34 small launches a pick, and a check for termination once every
+  `check_every` picks, so it syncs the host that rarely instead of once
+  per pick (a finished row is left unchanged by the extra steps).
+Both keep the same rows with the same scores. Counter
+(`utils/profiling`): `nms.steps`, the pick loop's iterations, once a
+call: the plain loop's (rounded up to its checks), or the kernel's
+longest row's picks, read from its counts when the recording is read.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from opental_torch.ops import soft_nms_cuda
 from opental_torch.utils import profiling
 
 SCORE_FLOOR = 1e-3
@@ -67,8 +76,33 @@ def soft_nms_device(segments: torch.Tensor, sigma: float = 0.5,
     segments: (..., N, D) float32 [start, end, score, ...]; valid:
     (..., N) bool (False for padding rows). Returns (segments with decayed
     scores and a kept-flag column appended -> (..., N, D+1), picked count
-    per block (...)). Unpicked rows have flag 0.
+    per block (...)). Unpicked rows have flag 0. The kernel where the
+    blocks are on the card (float32 out), else `soft_nms_plain`
+    (check_every is its host check's interval).
     """
+    if not segments.is_cuda:
+        return soft_nms_plain(segments, sigma, top_k, score_threshold,
+                              valid, check_every)
+    if segments.dtype in (torch.float16, torch.bfloat16):
+        segments = segments.float()
+    if valid is not None:
+        valid = valid.reshape(segments.shape[:-1]).contiguous()
+    out, count = soft_nms_cuda.soft_nms(segments.contiguous(), valid,
+                                        sigma, top_k, score_threshold)
+    # the longest row's picks, read when the recording is: no sync here
+    profiling.count('nms.steps',
+                    lambda: int(count.max()) if count.numel() else 0)
+    return out, count
+
+
+def soft_nms_plain(segments: torch.Tensor, sigma: float = 0.5,
+                   top_k: int = 200, score_threshold: float = SCORE_FLOOR,
+                   valid: Optional[torch.Tensor] = None,
+                   check_every: int = 64
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`soft_nms_device`'s recursion in plain PyTorch, on the blocks'
+    device: one pick of every block a step, and a host check for
+    termination every `check_every` steps."""
     batch_shape = segments.shape[:-2]
     n, d = segments.shape[-2:]
     seg = segments.reshape(-1, n, d)

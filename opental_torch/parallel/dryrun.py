@@ -239,8 +239,9 @@ def _rank_main(rank: int, world: int, init_method: str, device: str,
     torch.set_num_threads(1)
     if device != 'cpu':
         from opental_torch.ops import _build, boundary_pool_cuda, \
-            stem_pack_cuda
-        _build.build_all([boundary_pool_cuda.NAME, stem_pack_cuda.NAME])
+            soft_nms_cuda, stem_pack_cuda
+        _build.build_all([boundary_pool_cuda.NAME, stem_pack_cuda.NAME,
+                          soft_nms_cuda.NAME])
     mesh = make_mesh(world, rank, local_rank=rank,
                      init_method=init_method,
                      backend=rank_backend(device, world),

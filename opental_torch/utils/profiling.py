@@ -13,8 +13,9 @@ the JAX key names.
 The recorder. `span(name, rid, **attrs)` marks a layer's work (ingest,
 forwards, post-processing and soft-NMS, the train step's phases, the
 loaders; README lists the names) and `count(name, n)` adds to a
-counter. Both record only while a `torch.profiler` session is recording
-in the process or an operator has entered `recording()`. The profiler's
+counter (n a number, or a function read with the recording). Both
+record only while a `torch.profiler` session is recording in the
+process or an operator has entered `recording()`. The profiler's
 state belongs to the thread that started it, so each span entry on the
 main thread polls it (under a microsecond) and sets a module flag for
 every thread (the prefetch and loader threads follow the main thread);
@@ -36,7 +37,8 @@ import os
 import sys
 import threading
 import time
-from typing import Any, Dict, Iterator, List, NamedTuple, Optional
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Optional, Union)
 
 TRACE_FILE = 'trace.json'
 
@@ -156,8 +158,11 @@ def span(name: str, rid: Any = None, **attrs: Any):
     return _Open(name, rid, attrs or None)
 
 
-def count(name: str, n: float = 1) -> None:
-    """Add n to counter `name`, while recording is on."""
+def count(name: str, n: Union[float, Callable[[], float]] = 1) -> None:
+    """Add n to counter `name`, while recording is on. n may be a
+    function of no arguments, called when the recording is read
+    (`recorded()`): a count of a value on the card then waits for the
+    card there, and not where it is made."""
     if not _ON:
         return
     t = time.time_ns()
@@ -184,10 +189,16 @@ def recording() -> Iterator[None]:
 
 def recorded() -> Recorded:
     """The spans (open ones with end_ns None) and counts of the current
-    recording, or of the last one once it has ended."""
+    recording, or of the last one once it has ended; a count made with a
+    function is read here, once."""
     store = _STORE
     with _LOCK:
         spans, counts = list(store.spans), list(store.counts)
+    for k, c in enumerate(counts):
+        if callable(c[2]):
+            counts[k] = c[:2] + (c[2](),) + c[3:]
+            with _LOCK:
+                store.counts[k] = counts[k]
     return Recorded([Span(*s) for s in spans], [Count(*c) for c in counts])
 
 

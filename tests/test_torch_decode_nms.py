@@ -17,7 +17,9 @@ from opental_tpu.ops import nms as jnms
 
 from opental_torch.infer import decode as td
 from opental_torch.infer import pipeline as tpipe
+from opental_torch.ops import _build, soft_nms_cuda
 from opental_torch.ops import nms as tnms
+from opental_torch.utils import profiling
 
 W, P, K = 3, 126, 8
 
@@ -104,6 +106,44 @@ def test_soft_nms_device_batched(top_k, check_every):
         np.testing.assert_array_equal(got[c, :, -1].numpy(), want[:, -1])
         np.testing.assert_allclose(got[c].numpy(), want, rtol=1e-5,
                                    atol=1e-7)
+
+
+def test_soft_nms_cuda_wrapper_rejects_without_building():
+    """The kernel's wrapper imports without CUDA, and raises (instead of
+    building or falling back) on CPU tensors and on input that is not
+    float32."""
+    block = torch.from_numpy(random_block(0, n=64))
+    with pytest.raises(ValueError, match='CUDA'):
+        soft_nms_cuda.soft_nms(block, None, 0.5, 200, 1e-3)
+    with pytest.raises(TypeError, match='float32'):
+        soft_nms_cuda.soft_nms(block.double(), None, 0.5, 200, 1e-3)
+    assert not soft_nms_cuda._fns
+    assert soft_nms_cuda.NAME not in _build._LOADED
+
+
+def test_soft_nms_device_on_cpu_is_the_plain_loop(monkeypatch):
+    """On CPU tensors `soft_nms_device` runs `soft_nms_plain` (the same
+    blocks, counts and `nms.steps`) and launches no kernel."""
+    blocks = torch.from_numpy(np.stack([random_block(s, n=128)
+                                        for s in range(3)]))
+    valid = torch.from_numpy(np.random.RandomState(4).rand(3, 128) > 0.3)
+    want, want_count = tnms.soft_nms_plain(blocks, top_k=37, valid=valid)
+    calls = []
+    plain = tnms.soft_nms_plain
+
+    def spy(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    monkeypatch.setattr(tnms, 'soft_nms_plain', spy)
+    launches = soft_nms_cuda.LAUNCHES
+    with profiling.recording():
+        got, count = tnms.soft_nms_device(blocks, top_k=37, valid=valid)
+    steps = [c.n for c in profiling.recorded().counts
+             if c.name == 'nms.steps']
+    assert calls == [1] and soft_nms_cuda.LAUNCHES == launches
+    assert torch.equal(got, want) and torch.equal(count, want_count)
+    assert steps == [37]      # the loop runs out at top_k
 
 
 class _Stub(torch.nn.Module):

@@ -119,6 +119,26 @@ def test_recording_block_records_spans_and_counts():
     assert profiling.recorded() == rec
 
 
+def test_a_count_of_a_function_is_read_with_the_recording():
+    """A count made with a function (a value still on the card) calls it
+    once, when the recording is read, and never while recording is
+    off."""
+    calls = []
+
+    def later():
+        calls.append(1)
+        return 7
+
+    profiling.count('n', later)
+    with profiling.recording():
+        profiling.count('n', 2)
+        profiling.count('n', later)
+        assert not calls
+    rec = profiling.recorded()
+    assert [(c.name, c.n) for c in rec.counts] == [('n', 2), ('n', 7)]
+    assert profiling.recorded() == rec and calls == [1]
+
+
 def test_a_new_recording_starts_empty():
     with profiling.recording():
         with profiling.span('first'):

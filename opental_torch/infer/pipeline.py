@@ -39,7 +39,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -246,6 +247,30 @@ def _gather_decoded(mesh: Mesh, dec: DecodedWindows) -> DecodedWindows:
                             for a in dec))
 
 
+STREAMS = ('rgb', 'flow')
+
+
+def fused_forward(models: Sequence[torch.nn.Module],
+                  inputs: Sequence[torch.Tensor],
+                  forward: Optional[Callable] = None) -> Dict[str, Any]:
+    """The RGB model's outputs on inputs[0] or, with a flow model and its
+    input second, both streams' outputs averaged head by head
+    (`fuse_streams`). The streams run in that order on the current
+    stream; `forward(model, x)` replaces `model(x)` (the shared
+    backbone's path). Spans `stream.rgb`, `stream.flow` and `fuse`;
+    counters `stream.rgb_ms` and `stream.flow_ms`, each stream's time on
+    the card (`profiling.device_ms`)."""
+    outs = []
+    for name, model, x in zip(STREAMS, models, inputs):
+        with profiling.span('stream.' + name), \
+                profiling.device_ms(f'stream.{name}_ms', x.device):
+            outs.append(model(x) if forward is None else forward(model, x))
+    if len(outs) == 1:
+        return outs[0]
+    with profiling.span('fuse'):
+        return fuse_streams(*outs)
+
+
 def _new_video(name, offsets, fps, **extra) -> Dict[str, Any]:
     """Scheduler record of an open video: decoded rows arrive in `got`
     until `need` reaches 0."""
@@ -390,10 +415,9 @@ class InferencePipeline:
                         flow_clips: Optional[torch.Tensor] = None
                         ) -> DecodedWindows:
         with torch.inference_mode():
-            out = self.model(clips)
-            if flow_clips is not None:
-                out = fuse_streams(out, self.flow_model(flow_clips))
-            return self._decode(out)
+            return self._decode(fused_forward(
+                (self.model, self.flow_model),
+                [clips] if flow_clips is None else [clips, flow_clips]))
 
     def forward_decode(self, clips: torch.Tensor,
                        flow_clips: Optional[torch.Tensor] = None
@@ -438,15 +462,15 @@ class InferencePipeline:
         decode of the b * k windows, span-major; on a mesh each rank runs
         its share of the spans."""
         def decode(bases, local, frames_valid):
-            outs = []
+            def forward(model, spans):
+                return model.detect_from_features(window_features(
+                    model.backbone_features(spans), local,
+                    self.clip_length))
             with torch.inference_mode():
-                for model, buf in zip((self.model, self.flow_model), bufs):
-                    feats = model.backbone_features(device_windows(
-                        buf, bases, frames_valid, self.span))
-                    outs.append(model.detect_from_features(
-                        window_features(feats, local, self.clip_length)))
-                out = outs[0] if len(outs) == 1 else fuse_streams(*outs)
-                return self._decode(out)
+                return self._decode(fused_forward(
+                    (self.model, self.flow_model),
+                    [device_windows(buf, bases, frames_valid, self.span)
+                     for buf in bufs], forward))
         return self._sharded(decode, [bases, local, frames_valid],
                              per_row=local.shape[1])
 

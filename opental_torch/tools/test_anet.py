@@ -19,6 +19,8 @@ Output keys drop the 'v_' prefix and segments are clamped to the video's
 duration (anet/test.py:183-239). `--binary` is the binary-actionness
 variant: one class per video from a video-level classifier file, its
 score fused into the proposals'. Runs on the card unless `--device cpu`.
+`AnetInference` is the inference itself, built once and run over
+in-memory videos; `run_test_anet` feeds it the npys and writes the JSON.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -37,10 +40,12 @@ from opental_torch.config import Config, build_arg_parser, \
 from opental_torch.data import transforms
 from opental_torch.data.anet import get_video_info
 from opental_torch.data.prefetch import prefetch_items
-from opental_torch.infer.decode import decode_windows, fuse_streams
-from opental_torch.infer.pipeline import _require_u8, ingest_windows
+from opental_torch.infer.decode import decode_windows
+from opental_torch.infer.pipeline import (_require_u8, fused_forward,
+                                          ingest_windows)
 from opental_torch.ops.nms import soft_nms_device, soft_nms_numpy
 from opental_torch.tools.test import inference_dtype, load_variables
+from opental_torch.utils import profiling
 
 
 def build_device_post(cls_cols: Sequence[int], use_edl: bool,
@@ -51,7 +56,7 @@ def build_device_post(cls_cols: Sequence[int], use_edl: bool,
     card: per video and class the score filter, a top-k preselect and
     soft-NMS, all (video, class) rows in one batched `soft_nms_device`
     (`opental_tpu/tools/test_anet.py:38-86`). The last column flags the
-    kept rows."""
+    kept rows. Span `post.soft_nms` around the soft-NMS."""
     conf_floor = 1e-9 if binary else 0.001   # test_binary.py:125
     # binary mode also lowers the soft-NMS score floor to 1e-9
     # (test_binary.py:155 vs test.py:166's 0.001)
@@ -81,9 +86,10 @@ def build_device_post(cls_cols: Sequence[int], use_edl: bool,
             cols.append(take(unct.float()[..., None]))
         if os_head:
             cols.append(take(act.float()[..., None]))
-        kept, _ = soft_nms_device(torch.cat(cols, -1), sigma=sigma,
-                                  top_k=top_k, score_threshold=nms_floor,
-                                  valid=top_sc > 0)
+        with profiling.span('post.soft_nms'):
+            kept, _ = soft_nms_device(torch.cat(cols, -1), sigma=sigma,
+                                      top_k=top_k, score_threshold=nms_floor,
+                                      valid=top_sc > 0)
         return kept
 
     return post
@@ -95,12 +101,12 @@ def load_class_names(class_info_path: str) -> Dict[int, str]:
     return {i + 1: name for i, name in enumerate(lines)}
 
 
-def prepare_window(npy_path: str, clip_length: int, crop_size: int
-                   ) -> np.ndarray:
-    """(clip_length, crop, crop, C) float32 in [-1, 1]: center crop, the
-    tail padded with 127.5 or the video cut (anet/test.py:80-92)."""
-    data = transforms.center_crop(np.load(npy_path).astype(np.float32),
-                                  crop_size)
+def stage_window(data: np.ndarray, clip_length: int, crop_size: int
+                 ) -> np.ndarray:
+    """(clip_length, crop, crop, C) float32 in [-1, 1] of a video's
+    (T, H, W, C) frames: center crop, the tail padded with 127.5 or the
+    video cut (anet/test.py:80-92)."""
+    data = transforms.center_crop(data.astype(np.float32), crop_size)
     t = data.shape[0]
     if t < clip_length:
         data = np.concatenate([data, np.full(
@@ -110,12 +116,12 @@ def prepare_window(npy_path: str, clip_length: int, crop_size: int
     return (data / 255.0) * 2.0 - 1.0
 
 
-def prepare_window_u8(npy_path: str, clip_length: int, crop_size: int):
-    """prepare_window's uint8 twin: (raw uint8 window zero-padded or cut,
+def stage_window_u8(data: np.ndarray, clip_length: int, crop_size: int,
+                    what: str = 'frames'):
+    """stage_window's uint8 twin: (raw uint8 window zero-padded or cut,
     frames valid); `ingest_windows` normalizes it on the card and zeroes
     the frames past the valid count, the 127.5 pad's exact value."""
-    data = np.load(npy_path)
-    _require_u8(data, f'frames ({os.path.basename(npy_path)})')
+    _require_u8(data, what)
     data = transforms.center_crop(data, crop_size)
     valid = min(data.shape[0], clip_length)
     out = np.zeros((clip_length,) + data.shape[1:], np.uint8)
@@ -131,11 +137,6 @@ def pad_video_batch(arr: Optional[np.ndarray], video_batch: int
         return arr
     reps = np.repeat(arr[-1:], video_batch - arr.shape[0], 0)
     return np.concatenate([arr, reps], 0)
-
-
-def _npy_is_u8(directory: str, name: str) -> bool:
-    return np.load(os.path.join(directory, name + '.npy'),
-                   mmap_mode='r').dtype == np.uint8
 
 
 def _rows(post_block: Optional[np.ndarray], segs, scores, unct, act,
@@ -167,6 +168,184 @@ def _rows(post_block: Optional[np.ndarray], segs, scores, unct, act,
     return kept
 
 
+class AnetInference:
+    """ActivityNet inference over in-memory videos, built once from the
+    model (and the flow model under fusion) and the configuration's
+    testing settings: every video is one `clip_length` window, and
+    `video_batch` videos go through one fused forward
+    (`infer.pipeline.fused_forward`), the ragged tail padded with the
+    last video (and its fps), whose rows are never read back. Videos are
+    staged on a prefetch thread: uint8 frames (the run's first video
+    decides for the whole run) as raw bytes with their frames-valid,
+    normalized on the card (`ingest_windows`); other frames as float32
+    on the host (`stage_window`). Post-processing runs on the card
+    (`build_device_post`) or, with `testing.device_nms: false`, in the
+    host numpy loop; segments are clamped to the video's duration
+    (anet/test.py:183-239). `binary` is the binary-actionness mode's
+    post-processing (its score floors, no actionness gate).
+
+    Spans: `ingest.stage` (prefetch thread; rid the batch),
+    `ingest.wait`, `infer.forward` (rid the batch; counters
+    `infer.rows`, the padded rows, and `infer.windows`, the videos) and
+    `post.batch` (rid the batch) > `post.soft_nms`, `post.fetch`,
+    `post.format`.
+    """
+
+    def __init__(self, cfg: Config, model: torch.nn.Module,
+                 flow_model: Optional[torch.nn.Module] = None,
+                 video_batch: int = 4, binary: bool = False,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        te = cfg.testing
+        self.clip_length = cfg.get_path('dataset.testing.clip_length', 768)
+        self.crop_size = cfg.get_path('dataset.testing.crop_size', 96)
+        flags = factory.model_flags(cfg)
+        self.use_edl, self.os_head = flags['use_edl'], flags['os_head']
+        self.evidence = flags['evidence']
+        num_classes = flags['num_classes'] - (1 if self.os_head else 0)
+        self.cls_cols = list(range(0, num_classes) if self.os_head
+                             else range(1, num_classes))
+        self.models = tuple(m.to(self.device).eval()
+                            for m in (model, flow_model) if m is not None)
+        self.video_batch, self.binary = video_batch, binary
+        self.sigma = te.get('nms_sigma', 0.85)
+        self.top_k = te.get('top_k', 5000)
+        self.post_fn = (build_device_post(
+            self.cls_cols, self.use_edl, self.os_head, binary, self.sigma,
+            self.top_k, te.get('n_candidates', 512))
+            if te.get('device_nms', True) else None)
+
+    def run(self, videos) -> Dict[str, List[Dict[str, Any]]]:
+        """{name: proposals} of every video (see `batches`)."""
+        return {name: props for batch in self.batches(videos)
+                for name, props in batch}
+
+    def batches(self, videos) -> Iterator[List[Tuple[str, List[dict]]]]:
+        """[(name, proposals)] of each batch in turn. videos: iterable of
+        (name, frames (T, H, W, C), fps, duration in seconds), with the
+        flow frames fifth under fusion, consumed lazily on the prefetch
+        thread. A proposal: 'cls' (the class index, 1-based for os_head),
+        'score', 'segment' [start, end] in seconds, 'uncertainty',
+        'actionness'."""
+        fusion = len(self.models) == 2
+        u8 = None
+
+        def chunks():
+            chunk = []
+            for item in videos:
+                chunk.append(item)
+                if len(chunk) == self.video_batch:
+                    yield chunk
+                    chunk = []
+            if chunk:
+                yield chunk
+
+        def stage(indexed):
+            nonlocal u8
+            b, chunk = indexed
+            with profiling.span('ingest.stage', b):
+                streams = [[item[1] for item in chunk]]
+                if fusion:
+                    streams.append([item[4] for item in chunk])
+                if u8 is None:
+                    u8 = all(s[0].dtype == np.uint8 for s in streams)
+                staged = [self._stage(s, [item[0] for item in chunk],
+                                      u8, 'flow frames' if j else 'frames')
+                          for j, s in enumerate(streams)]
+                fps = [item[2] for item in chunk]
+                fps += [fps[-1]] * (self.video_batch - len(fps))
+                return b, chunk, staged, np.asarray(fps, np.float32)
+
+        with contextlib.closing(prefetch_items(
+                enumerate(chunks()), transform=stage,
+                wait='ingest.wait')) as staged_batches:
+            for b, chunk, staged, fps in staged_batches:
+                with torch.inference_mode():
+                    with profiling.span('infer.forward', b):
+                        profiling.count('infer.rows', self.video_batch)
+                        profiling.count('infer.windows', len(chunk))
+                        dec = decode_windows(
+                            fused_forward(self.models, [
+                                self._clips(s) for s in staged]),
+                            self.clip_length, use_edl=self.use_edl,
+                            os_head=self.os_head,
+                            score_func='dirichlet' if self.use_edl
+                            else 'softmax', evidence=self.evidence)
+                    with profiling.span('post.batch', b):
+                        done = self._post(dec, chunk, fps)
+                yield done
+
+    def _stage(self, frames: List[np.ndarray], names: List[str], u8: bool,
+               what: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """One stream of a batch: (windows, frames valid) padded to
+        video_batch rows; frames valid None for float32 windows."""
+        if not u8:
+            return pad_video_batch(np.stack([
+                stage_window(f, self.clip_length, self.crop_size)
+                for f in frames]), self.video_batch), None
+        outs = [stage_window_u8(f, self.clip_length, self.crop_size,
+                                f'{what} ({name})')
+                for f, name in zip(frames, names)]
+        return (pad_video_batch(np.stack([o[0] for o in outs]),
+                                self.video_batch),
+                pad_video_batch(np.asarray([o[1] for o in outs], np.int32),
+                                self.video_batch))
+
+    def _clips(self, staged) -> torch.Tensor:
+        x, valid = staged
+        x = torch.from_numpy(x).to(self.device, non_blocking=True)
+        if valid is not None:
+            return ingest_windows(x, torch.from_numpy(valid).to(self.device))
+        return x.permute(0, 4, 1, 2, 3).contiguous()
+
+    def _post(self, dec, chunk, fps: np.ndarray
+              ) -> List[Tuple[str, List[dict]]]:
+        """Each video of the batch with its proposals."""
+        blocks = segs = scores = unct = act = None
+        if self.post_fn is not None:
+            blocks = self.post_fn(dec.segments, dec.scores, dec.uncertainty,
+                                  dec.actionness,
+                                  torch.from_numpy(fps).to(self.device))
+            with profiling.span('post.fetch'):
+                blocks = blocks.cpu().numpy()          # (B, C, k, D + 1)
+        else:
+            with profiling.span('post.fetch'):
+                segs = dec.segments.float().cpu().numpy()
+                scores = dec.scores.float().cpu().numpy()
+                unct = (dec.uncertainty.float().cpu().numpy()
+                        if self.use_edl else None)
+                act = (dec.actionness.float().cpu().numpy()
+                       if self.os_head else None)
+        with profiling.span('post.format'):
+            out = []
+            for vi, (name, _, fps_v, duration, *_) in enumerate(chunk):
+                props = []
+                for ci, cl in enumerate(self.cls_cols):
+                    kept = _rows(None if blocks is None else blocks[vi, ci],
+                                 segs, scores, unct, act, vi, cl, fps_v,
+                                 self.binary, self.os_head, self.use_edl,
+                                 self.sigma, self.top_k)
+                    cl_idx = cl + 1 if self.os_head else cl
+                    for row in kept:
+                        if row[2] <= 0:
+                            continue
+                        start_t = max(0.0, float(row[0]))
+                        end_t = min(duration, float(row[1]))
+                        if end_t <= start_t:
+                            continue
+                        props.append({
+                            'cls': cl_idx,
+                            'score': float(row[2]),
+                            'segment': [start_t, end_t],
+                            'uncertainty': (float(row[3]) if self.use_edl
+                                            else 0.0),
+                            'actionness': (float(row[-1]) if self.os_head
+                                           else 0.0),
+                        })
+                out.append((name, props))
+            return out
+
+
 def run_test_anet(cfg: Config, max_videos: Optional[int] = None,
                   video_batch: int = 4, binary: bool = False,
                   cls_score_file: Optional[str] = None,
@@ -174,15 +353,13 @@ def run_test_anet(cfg: Config, max_videos: Optional[int] = None,
                   device: Optional[Union[str, torch.device]] = None) -> str:
     """Detection JSON (ActivityNet-v1.3 schema) of the `subset` videos of
     `dataset.testing.video_info_path` whose npy exists (restricted to
-    `video_names` where given); returns its path. The compute dtype is
-    bfloat16 unless `model.compute_dtype` says float32."""
+    `video_names` where given); returns its path. The videos' npys load
+    on `AnetInference`'s prefetch thread. The compute dtype is bfloat16
+    unless `model.compute_dtype` says float32."""
     dev = resolve_device(device)
     te = cfg.testing
     clip_length = cfg.get_path('dataset.testing.clip_length', 768)
     crop_size = cfg.get_path('dataset.testing.crop_size', 96)
-    flags = factory.model_flags(cfg)
-    use_edl, os_head = flags['use_edl'], flags['os_head']
-    num_classes = flags['num_classes'] - (1 if os_head else 0)
     fusion = te.get('fusion', False)
 
     def build(checkpoint, in_channels=None):
@@ -190,20 +367,13 @@ def run_test_anet(cfg: Config, max_videos: Optional[int] = None,
                                     crop_size=crop_size,
                                     dtype=inference_dtype(cfg),
                                     in_channels=in_channels)
-        return load_variables(model, checkpoint).to(dev).eval()
+        return load_variables(model, checkpoint)
 
-    model = build(te['checkpoint_path'])
     # RGB + flow late fusion by head-wise averaging (anet/test_fusion.py)
-    flow_model = build(te['flow_checkpoint_path'], 2) if fusion else None
-    score_func = 'dirichlet' if use_edl else 'softmax'
-
-    def forward_decode(clips, flow_clips=None):
-        out = model(clips)
-        if flow_model is not None:
-            out = fuse_streams(out, flow_model(flow_clips))
-        return decode_windows(out, clip_length, use_edl=use_edl,
-                              os_head=os_head, score_func=score_func,
-                              evidence=flags['evidence'])
+    infer = AnetInference(
+        cfg, build(te['checkpoint_path']),
+        build(te['flow_checkpoint_path'], 2) if fusion else None,
+        video_batch=video_batch, binary=binary, device=dev)
 
     video_infos = get_video_info(
         cfg.get_path('dataset.testing.video_info_path'), subset)
@@ -218,10 +388,6 @@ def run_test_anet(cfg: Config, max_videos: Optional[int] = None,
         allowed = set(video_names)
         names = [n for n in names if n in allowed]
     names = names[:max_videos]
-    # one staging mode for the run, from the first video: raw uint8 npys
-    # (the reference's and ours) ship as bytes, float npys as float32
-    staging_u8 = bool(names) and _npy_is_u8(npy_dir, names[0]) and (
-        not fusion or _npy_is_u8(flow_dir, names[0]))
 
     # binary-actionness mode: a video-level classifier file supplies the
     # labels, {'results': {name: [scores]}, 'class': [names]}
@@ -233,103 +399,37 @@ def run_test_anet(cfg: Config, max_videos: Optional[int] = None,
             cls_data = json.load(f)
         cls_scores, cls_actions = cls_data['results'], cls_data['class']
 
-    def stage(directory, chunk):
-        paths = [os.path.join(directory, n + '.npy') for n in chunk]
-        if staging_u8:
-            outs = [prepare_window_u8(p, clip_length, crop_size)
-                    for p in paths]
-            return (pad_video_batch(np.stack([o[0] for o in outs]),
-                                    video_batch),
-                    pad_video_batch(np.asarray([o[1] for o in outs],
-                                               np.int32), video_batch))
-        return pad_video_batch(np.stack([
-            prepare_window(p, clip_length, crop_size) for p in paths]),
-            video_batch), None
+    def videos():
+        for name in names:
+            info = video_infos[name]
+            item = (name, np.load(os.path.join(npy_dir, name + '.npy')),
+                    info['fps'], info['duration'])
+            if fusion:
+                item += (np.load(os.path.join(flow_dir, name + '.npy')),)
+            yield item
 
-    def assemble(i):
-        # on the prefetch thread: load + crop batch i + 1 while the card
-        # scores batch i
-        chunk = names[i:i + video_batch]
-        fps = [video_infos[n]['fps'] for n in chunk]
-        # padded rows take the last fps, as they take the last video
-        fps += [fps[-1]] * (video_batch - len(fps))
-        return (i, chunk, stage(npy_dir, chunk),
-                stage(flow_dir, chunk) if fusion else None,
-                np.asarray(fps, np.float32))
-
-    def to_clips(staged):
-        x, valid = staged
-        x = torch.from_numpy(x).to(dev, non_blocking=True)
-        if valid is not None:
-            return ingest_windows(x, torch.from_numpy(valid).to(dev))
-        return x.permute(0, 4, 1, 2, 3).contiguous()
-
-    cls_rng = list(range(0, num_classes) if os_head
-                   else range(1, num_classes))
-    sigma = te.get('nms_sigma', 0.85)
-    top_k = te.get('top_k', 5000)
-    post_fn = (build_device_post(cls_rng, use_edl, os_head, binary, sigma,
-                                 top_k, te.get('n_candidates', 512))
-               if te.get('device_nms', True) else None)
     result_dict: Dict[str, List[dict]] = {}
-    with contextlib.closing(prefetch_items(
-            range(0, len(names), video_batch), assemble)) as batches, \
-            torch.inference_mode():
-        for i, chunk, rgb, flow, fps in batches:
-            dec = forward_decode(to_clips(rgb),
-                                 to_clips(flow) if fusion else None)
-            blocks = segs = scores = unct = act = None
-            if post_fn is not None:
-                blocks = post_fn(dec.segments, dec.scores, dec.uncertainty,
-                                 dec.actionness,
-                                 torch.from_numpy(fps).to(dev)
-                                 ).cpu().numpy()       # (B, C, k, D + 1)
-            else:
-                segs = dec.segments.float().cpu().numpy()
-                scores = dec.scores.float().cpu().numpy()
-                unct = (dec.uncertainty.float().cpu().numpy()
-                        if use_edl else None)
-                act = (dec.actionness.float().cpu().numpy()
-                       if os_head else None)
-            for vi, name in enumerate(chunk):
-                duration = video_infos[name]['duration']
-                props = []
-                for ci, cl in enumerate(cls_rng):
-                    kept = _rows(None if blocks is None else blocks[vi, ci],
-                                 segs, scores, unct, act, vi, cl,
-                                 video_infos[name]['fps'], binary, os_head,
-                                 use_edl, sigma, top_k)
-                    cl_idx = cl + 1 if os_head else cl
-                    for row in kept:
-                        if row[2] <= 0:
-                            continue
-                        start_t = max(0.0, float(row[0]))
-                        end_t = min(duration, float(row[1]))
-                        if end_t <= start_t:
-                            continue
-                        props.append({
-                            'label': idx_to_class.get(cl_idx, str(cl_idx)),
-                            'score': float(row[2]),
-                            'segment': [start_t, end_t],
-                            'uncertainty': (float(row[3]) if use_edl
-                                            else 0.0),
-                            'actionness': (float(row[-1]) if os_head
-                                           else 0.0),
-                        })
-                key = name[2:] if name.startswith('v_') else name
-                if binary and key in cls_scores:
-                    # one class per video, the classifier's argmax, its
-                    # confidence fused into the proposals' scores
-                    # (test_binary.py:163-176, 210-211)
-                    v_scores = cls_scores[key]
-                    pred_class = cls_actions[int(np.argmax(v_scores))]
-                    pred_conf = float(np.max(v_scores))
-                    props = [dict(p, label=pred_class,
-                                  score=p['score'] * pred_conf)
-                             for p in props]
-                result_dict[key] = props
-            print(f'[{min(i + video_batch, len(names))}/{len(names)}] '
-                  'videos')
+    done = 0
+    for batch in infer.batches(videos()):
+        for name, found in batch:
+            props = [{'label': idx_to_class.get(p['cls'], str(p['cls'])),
+                      'score': p['score'], 'segment': p['segment'],
+                      'uncertainty': p['uncertainty'],
+                      'actionness': p['actionness']} for p in found]
+            key = name[2:] if name.startswith('v_') else name
+            if binary and key in cls_scores:
+                # one class per video, the classifier's argmax, its
+                # confidence fused into the proposals' scores
+                # (test_binary.py:163-176, 210-211)
+                v_scores = cls_scores[key]
+                pred_class = cls_actions[int(np.argmax(v_scores))]
+                pred_conf = float(np.max(v_scores))
+                props = [dict(p, label=pred_class,
+                              score=p['score'] * pred_conf)
+                         for p in props]
+            result_dict[key] = props
+        done += len(batch)
+        print(f'[{done}/{len(names)}] videos')
 
     payload = {'version': 'ActivityNet-v1.3', 'results': result_dict,
                'external_data': {}}

@@ -13,7 +13,9 @@ the JAX key names.
 The recorder. `span(name, rid, **attrs)` marks a layer's work (ingest,
 forwards, post-processing and soft-NMS, the train step's phases, the
 loaders; README lists the names) and `count(name, n)` adds to a
-counter (n a number, or a function read with the recording). Both
+counter (n a number, or a function read with the recording);
+`device_ms(name, device)` counts a block's time on the card between
+two CUDA events, made only while recording. They
 record only while a `torch.profiler` session is recording in the
 process or an operator has entered `recording()`. The profiler's
 state belongs to the thread that started it, so each span entry on the
@@ -168,6 +170,28 @@ def count(name: str, n: Union[float, Callable[[], float]] = 1) -> None:
     t = time.time_ns()
     with _LOCK:
         _STORE.counts.append((t, name, n, threading.get_ident()))
+
+
+@contextlib.contextmanager
+def device_ms(name: str, device: Any) -> Iterator[None]:
+    """Count the card's milliseconds between two CUDA events recorded on
+    the current stream before and after the block as counter `name`,
+    read with the recording (no sync here). Off the card, or while not
+    recording, no event is made and nothing is counted."""
+    if not _ON or getattr(device, 'type', None) != 'cuda':
+        yield
+        return
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+
+    def elapsed() -> float:
+        end.synchronize()
+        return start.elapsed_time(end)
+    count(name, elapsed)
 
 
 @contextlib.contextmanager

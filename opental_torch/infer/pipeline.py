@@ -14,8 +14,9 @@ Ingest modes, as the JAX package's (`run_videos` routes):
   (`device_windows`). Over a dataset (`run_videos_ingest`) consecutive
   videos pack into one frame buffer of `frames_capacity` frames per
   flush, staged on a background thread while the previous flush
-  computes, and windows batch into full `max_batch` forwards across
-  video boundaries;
+  computes, windows batch into full `max_batch` forwards across video
+  boundaries, and a flush's videos are post-processed while the next
+  flush's forwards run;
 * host staging (`device_ingest=False`): windows are cut on the host,
   as float32 per video (`stack_windows`) or as uint8 packed across
   videos (`stack_windows_u8` + `ingest_windows`).
@@ -39,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
@@ -721,14 +723,36 @@ class InferencePipeline:
         stream waits on the copy's event, and each staged tensor is
         recorded on the compute stream, so its memory is not reused
         before the forwards that read it have run. Decoded rows go back
-        to their videos in order; each video is post-processed after its
-        flush. For fusion, twin RGB / flow buffers share one region
-        layout and one offsets array; each stream keeps its own
-        frames-valid (a flow npy may be a frame shorter).
+        to their videos in order. For fusion, twin RGB / flow buffers
+        share one region layout and one offsets array; each stream keeps
+        its own frames-valid (a flow npy may be a frame shorter).
+
+        Post-processing runs one flush behind: a flush's videos are
+        post-processed, in order, once the next flush's forwards are
+        under way (the last flush's after the loop), so the host formats
+        one flush's proposals while the card runs the next one's
+        forwards. On a card a forward is ~3,500 launches and the
+        CUDA launch queue holds ~1,000, so the thread that queues a
+        forward is held until the card nears its end: each flush's
+        forwards are queued on a launcher thread of their own (made once
+        per call; PyTorch's operators release the GIL while a launch
+        waits), while the calling thread post-processes the flush
+        before. The posts run on a high-priority stream made once per
+        call, which first waits on an event recorded on the compute
+        stream after the flush's last forward and decode: the posts' own
+        syncs (the offsets' copy, the kept blocks' fetch) wait for that
+        stream alone, never for the later forwards, and its short
+        kernels do not queue behind theirs. A video's decoded rows stay
+        referenced until its post has returned, past the fetch that
+        waits for every read of them. Off the card the forwards run on
+        the calling thread, then the flush before is post-processed,
+        with no streams. Counter `post.behind`: per video
+        post-processed, its real windows where a later flush's forwards
+        were under way, else 0.
 
         videos: iterable of (name, data, sample_count, sample_fps), with
         the flow frames fifth for fusion, consumed lazily. Returns
-        {name: proposals}.
+        {name: proposals}, in the order the videos came.
         """
         self._check_batch(max_batch)
         fusion = self.flow_model is not None
@@ -805,6 +829,13 @@ class InferencePipeline:
                 yield close()
 
         side = torch.cuda.Stream(self.device) if cuda else None
+        compute = torch.cuda.current_stream(self.device) if cuda else None
+        post_stream = (torch.cuda.Stream(self.device, priority=-1)
+                       if cuda else None)
+
+        def on(stream):
+            return (torch.cuda.stream(stream) if cuda
+                    else contextlib.nullcontext())
         n_streams = 2 if fusion else 1
         staged_keys = ['offs'] + [f'{p}{j}' for j in range(n_streams)
                                   for p in ('buf', 'fv')]
@@ -812,9 +843,7 @@ class InferencePipeline:
         def stage(plan):
             """Host plan -> device tensors, on the side stream (runs on
             the prefetch thread)."""
-            with profiling.span('ingest.stage', plan['flush']), \
-                    (torch.cuda.stream(side) if cuda
-                     else contextlib.nullcontext()):
+            with profiling.span('ingest.stage', plan['flush']), on(side):
                 for j in range(n_streams):
                     plan[f'buf{j}'] = stage_frames(
                         plan.pop(f'host{j}'), pad_to=plan['cap'],
@@ -826,15 +855,14 @@ class InferencePipeline:
                     plan['ready'].record(side)
             return plan
 
-        with contextlib.closing(prefetch_items(
-                plans(), transform=stage, depth=2,
-                wait='ingest.wait')) as staged_plans:
-            for plan in staged_plans:
+        def forwards(plan):
+            """Queue a flush's forwards and decodes on the compute stream;
+            returns its videos and an event recorded after them."""
+            with on(compute):
                 if cuda:
-                    current = torch.cuda.current_stream(self.device)
-                    current.wait_event(plan['ready'])
+                    compute.wait_event(plan['ready'])
                     for key in staged_keys:
-                        plan[key].record_stream(current)
+                        plan[key].record_stream(compute)
                 vids, vi = plan['vids'], 0
                 for i in range(0, plan['offs'].shape[0], max_batch):
                     dec = self.windows_decode(
@@ -845,9 +873,41 @@ class InferencePipeline:
                     real = max(0, min(max_batch, plan['n'] - i))
                     profiling.count('infer.windows', real)
                     vi = _route_rows(vids, dec, real, vi)
+                done = None
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(compute)
+            return vids, done
+
+        def post(vids, done, hidden: bool):
+            """Post-process a flush's videos in order, on the post stream
+            once the compute stream has passed `done`; `hidden`: while a
+            later flush's forwards are under way."""
+            with on(post_stream):
+                if cuda:
+                    post_stream.wait_event(done)
                 for vid in vids:
                     self._finish_packed(vid, results)
+                    profiling.count('post.behind',
+                                    len(vid['offsets']) if hidden else 0)
+
+        behind = None                   # the flush before: (videos, event)
+        with contextlib.ExitStack() as stack:
+            staged_plans = stack.enter_context(contextlib.closing(
+                prefetch_items(plans(), transform=stage, depth=2,
+                               wait='ingest.wait')))
+            launcher = stack.enter_context(ThreadPoolExecutor(
+                1, thread_name_prefix='opental-torch-launch')) \
+                if cuda else None
+            for plan in staged_plans:
+                flush = (forwards(plan) if launcher is None
+                         else launcher.submit(forwards, plan))
                 del plan
+                if behind is not None:
+                    post(*behind, hidden=True)
+                behind = flush if launcher is None else flush.result()
+        if behind is not None:
+            post(*behind, hidden=False)
         return results
 
     def run_videos_shared(self, videos, frames_capacity: int = 32768

@@ -7,6 +7,8 @@ This file imports neither JAX nor the JAX package:
 Without a card its tests skip.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -97,3 +99,76 @@ def test_device_windows_equal_host_windows_on_card():
     want = torch.from_numpy(stack_windows(data, offsets, 64))
     for g in got:
         assert torch.equal(g.cpu(), want.permute(0, 4, 1, 2, 3))
+
+
+# ~1 s at the H100's clock: far longer than a small video's post
+SLEEP_CYCLES = 2_000_000_000
+
+
+@pytest.mark.cuda
+def test_post_runs_behind_on_its_own_stream():
+    """Each video its own flush (two of these never fit 512 frames).
+    With a ~1 s sleep queued on the compute stream after the first
+    flush's event (among the second flush's forwards, which a thread of
+    their own queues: the first flush's post waits until the sleep is
+    queued), the first flush's post returns, on a stream of higher
+    priority, while the compute stream is still busy; every video's
+    proposals equal the serial order's (each flush alone through
+    `run_videos`, posted right after its own forwards)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the pool kernel has no CPU mode')
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        rgb = factory.init_weights(BDNet(
+            num_classes=5, os_head=True, use_edl=True, frame_num=CLIP,
+            crop_size=CROP), seed=0)
+        pipe = InferencePipeline(rgb, clip_length=CLIP, stride=64,
+                                 crop_size=CROP, top_k=50, use_edl=True,
+                                 os_head=True, device='cuda')
+        rng = np.random.RandomState(2)
+        vids = [(n, rng.randint(0, 256, (t, 40, 40, 3), dtype=np.uint8), t,
+                 10.0) for n, t in (('a', 300), ('b', 320), ('c', 280))]
+        serial = {}
+        for v in vids:      # also builds and warms every kernel
+            serial.update(pipe.run_videos(iter([v]), max_batch=4,
+                                          frames_capacity=512))
+        torch.cuda.synchronize()
+        compute = torch.cuda.current_stream()
+        real_decode, real_finish = pipe.windows_decode, pipe._finish_packed
+        seen, asleep = [], threading.Event()
+
+        def decode(*a):
+            dec = real_decode(*a)
+            if a[-1] == 1:
+                torch.cuda._sleep(SLEEP_CYCLES)
+                asleep.set()
+            return dec
+
+        def finish(vid, results):
+            if vid['name'] == 'a':
+                assert asleep.wait(timeout=60)
+            real_finish(vid, results)
+            post = torch.cuda.current_stream()
+            seen.append((vid['name'], compute.query(), post != compute,
+                         post.priority < compute.priority))
+
+        pipe.windows_decode, pipe._finish_packed = decode, finish
+        try:
+            behind = pipe.run_videos(iter(vids), max_batch=4,
+                                     frames_capacity=512)
+        finally:
+            del pipe.windows_decode, pipe._finish_packed
+        torch.cuda.synchronize()
+        assert seen[0] == ('a', False, True, True), seen
+        assert [s[0] for s in seen] == list(behind) == ['a', 'b', 'c']
+        assert behind == serial
+        assert all(len(p) > 0 for p in behind.values())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags

@@ -20,7 +20,9 @@ fused forward compiles once), and the port's `tools.threshold` CLI must
 give its threshold at rtol 1e-4.
 
 The scheduler's edge cases run on in-memory videos through
-`InferencePipeline.run_videos`, each video held against `run_video`.
+`InferencePipeline.run_videos`, each video held against `run_video`; so
+do the runs that post-process each flush one flush behind (RGB, fused,
+and a single flush), with their order and the `post.behind` counter.
 """
 
 import json
@@ -59,6 +61,7 @@ from opental_torch.models import pyramid
 from opental_torch.models.bdnet import BDNet
 from opental_torch.tools import test as port_test
 from opental_torch.tools import threshold as threshold_cli
+from opental_torch.utils import profiling
 
 CLIP, CROP, STRIDE = 128, 32, 128
 PACKING = {'model.compute_dtype': 'float32', 'testing.packed_batch': 4,
@@ -427,6 +430,118 @@ def test_scheduler_edge_case_matches_per_video(scheduler_run, name):
     assert len(want) > 0
     to_json = [[dict(p, label=p['cls']) for p in ps] for ps in (want, got)]
     assert_same(*to_json)
+
+
+# ------------------------------------- post-processing one flush behind
+
+# RGB frames of each video (sample count the same, flow a frame shorter);
+# at CAPACITY 512 and clip / stride 128 they make four flushes, the third
+# of one video: regions 200 + 250, 300 + 150, 480, 140 + 128
+BEHIND_LENGTHS = (200, 250, 300, 150, 480, 140, 100)
+BEHIND_FLUSHES = [['v0', 'v1'], ['v2', 'v3'], ['v4'], ['v5', 'v6']]
+# run: (fusion, videos)
+BEHIND_RUNS = {'rgb': (False, 7), 'fusion': (True, 7), 'one_flush': (False, 2)}
+
+
+@pytest.fixture(scope='module', params=sorted(BEHIND_RUNS))
+def behind_run(request):
+    """A packed run under `profiling.recording()` with every forward and
+    every post-processed video logged in order (`post_process_on_device`
+    replaced on the instance, keeping what it returned), and each video's
+    per-video run."""
+    fusion, n = BEHIND_RUNS[request.param]
+    rgb, flow = small_models()
+    pipe = InferencePipeline(rgb, flow_model=flow if fusion else None,
+                             **pipeline_kwargs())
+    rng = np.random.RandomState(11)
+    videos = [(f'v{i}', rng.randint(0, 256, (t, 40, 40, 3), np.uint8), t,
+               10.0, rng.randint(0, 256, (t - 1, 40, 40, 2), np.uint8))
+              for i, t in enumerate(BEHIND_LENGTHS[:n])]
+    log, returned = [], []
+    real_decode, real_post = pipe.windows_decode, pipe.post_process_on_device
+
+    def decode(*a):
+        log.append(('forward', a[-1]))
+        return real_decode(*a)
+
+    def post(*a, **kw):
+        returned.append(real_post(*a, **kw))
+        log.append(('post', len(returned) - 1))
+        return returned[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pipe, 'windows_decode', decode)
+        mp.setattr(pipe, 'post_process_on_device', post)
+        with profiling.recording():
+            packed = pipe.run_videos(iter(videos), max_batch=BATCH,
+                                     frames_capacity=CAPACITY)
+        rec = profiling.recorded()
+    per_video = {name: pipe.run_video(data, count, fps,
+                                      flow_data=fl if fusion else None)
+                 for name, data, count, fps, fl in videos}
+    names = [v[0] for v in videos]
+    flushes = BEHIND_FLUSHES if n == len(BEHIND_LENGTHS) else [names]
+    return dict(names=names, flushes=flushes, packed=packed, rec=rec,
+                log=log, returned=returned, per_video=per_video)
+
+
+def test_behind_matches_per_video(behind_run):
+    """Every video's proposals, list for list, equal its per-video
+    run's, in the order the videos came."""
+    r = behind_run
+    assert list(r['packed']) == r['names']
+    for name in r['names']:
+        want, got = r['per_video'][name], r['packed'][name]
+        assert len(want) > 0
+        assert_same(*[[dict(p, label=p['cls']) for p in ps]
+                      for ps in (want, got)])
+
+
+def test_posts_run_one_flush_behind(behind_run):
+    """The flushes are the planned ones; each flush's videos are
+    post-processed after the next flush's forwards were queued and
+    before the one after it, the last flush's after every forward."""
+    r = behind_run
+    plans = [s for s in r['rec'].spans if s.name == 'ingest.plan']
+    assert [s.attrs['videos'] for s in plans] == \
+        [len(f) for f in r['flushes']]
+    log, first, last = r['log'], {}, {}
+    for i, (kind, flush) in enumerate(log):
+        if kind == 'forward':
+            first.setdefault(flush, i)
+            last[flush] = i
+    n, video = len(r['flushes']), 0
+    for k, flush in enumerate(r['flushes']):
+        for _ in flush:
+            at = log.index(('post', video))
+            assert at > last[min(k + 1, n - 1)], (k, log)
+            if k + 2 < n:
+                assert at < first[k + 2], (k, log)
+            video += 1
+
+
+def test_post_behind_counts_the_windows_hidden(behind_run):
+    """`post.behind`: per video, its real windows outside the last
+    flush, 0 in it (every count 0 in a single-flush run)."""
+    r = behind_run
+    counts = [c.n for c in r['rec'].counts if c.name == 'post.behind']
+    last = set(r['flushes'][-1])
+    want = [0 if name in last else len(window_offsets(
+        BEHIND_LENGTHS[int(name[1:])], CLIP, STRIDE)) for name in r['names']]
+    assert counts == want
+    if len(r['flushes']) == 1:
+        assert sum(counts) == 0
+    else:
+        assert sum(counts) > 0
+
+
+def test_post_process_on_device_called_once_a_video(behind_run):
+    """The instance's `post_process_on_device` runs once per video and
+    the list it returns is the one stored in the results."""
+    r = behind_run
+    assert len(r['returned']) == len(r['names'])
+    for name, got in zip(r['names'], r['returned']):
+        assert r['packed'][name] is got
 
 
 def test_device_windows_zero_the_next_videos_frames():

@@ -204,6 +204,7 @@ from opental_torch import factory  # noqa: E402
 from opental_torch.config import load_config  # noqa: E402
 from opental_torch.data.thumos import get_class_index_map  # noqa: E402
 from opental_torch.infer import pipeline as pipeline_mod  # noqa: E402
+from opental_torch.infer import post as post_mod  # noqa: E402
 from opental_torch.infer.pipeline import (InferencePipeline,  # noqa: E402
                                           ingest_windows, window_offsets)
 from opental_torch.losses.edl import EDLState  # noqa: E402
@@ -2568,25 +2569,21 @@ def phase_anet_inference(state_dict, root):
     del model, clips
     torch.cuda.empty_cache()
     post_s = []
-    real_post = test_anet.build_device_post
+    real_blocks = post_mod.device_blocks
 
-    def timed_post(*a, **k):
-        fn = real_post(*a, **k)
+    def timed_blocks(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_blocks(*a, **k).cpu()
+        post_s.append(time.perf_counter() - t0)
+        return out
 
-        def run(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args).cpu()
-            post_s.append(time.perf_counter() - t0)
-            return out
-        return run
-
-    test_anet.build_device_post = timed_post
+    post_mod.device_blocks = timed_blocks
     try:
         _, wall_p, _, _ = anet_run(cfg_path, overrides={
             'testing.output_json': 'timed.json'})
     finally:
-        test_anet.build_device_post = real_post
+        post_mod.device_blocks = real_blocks
     log(f'forward + decode of a batch of {ANET_BATCH} (bf16): {fwd_ms:.2f} '
         f'ms ({ANET_BATCH / fwd_ms * 1e3:.1f} videos/s); device '
         f'post-processing (150 classes x {ANET_BATCH} videos, batched '

@@ -6,7 +6,7 @@ through the model (and, for two-stream fusion, the flow model, with every
 head averaged) and are decoded in batches; post-processing runs either
 fused on the device (per-class top-k preselect + batched soft-NMS, the
 default) or on the host (numpy soft-NMS per class, the reference's
-semantics; with `device_nms` each class's block on the device).
+semantics), both by `infer/post.py`.
 
 Ingest modes, as the JAX package's (`run_videos` routes):
 * device ingest (default): a video's raw uint8 frames go to the device
@@ -50,9 +50,9 @@ import torch
 from opental_torch import resolve_device
 from opental_torch.data import transforms
 from opental_torch.data.prefetch import prefetch_items
+from opental_torch.infer import post
 from opental_torch.infer.decode import (DecodedWindows, decode_windows,
                                         fuse_streams)
-from opental_torch.ops.nms import soft_nms_device, soft_nms_numpy
 from opental_torch.parallel.mesh import Mesh, gather_rows
 from opental_torch.utils import profiling
 
@@ -304,8 +304,7 @@ class InferencePipeline:
 
     The models (port BDNets with their weights) move to `device`, the
     card unless the caller asks for the CPU. device_post=True (default)
-    runs the fused device post-processing, False the host path, where
-    device_nms=True runs each class's soft-NMS on the device.
+    runs the fused device post-processing, False the host path.
     device_ingest=True (default) gathers windows from the raw frames on
     the device, False stages them on the host. n_candidates bounds the
     per-class device preselect (2048, the THUMOS CLI's default).
@@ -336,7 +335,7 @@ class InferencePipeline:
                  os_head: bool = False, use_gcpl: bool = False,
                  evidence: str = 'exp',
                  flow_model: Optional[torch.nn.Module] = None,
-                 device_nms: bool = False, device_post: bool = True,
+                 device_post: bool = True,
                  n_candidates: int = 2048, device_ingest: bool = True,
                  shared_backbone: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
@@ -368,7 +367,6 @@ class InferencePipeline:
         self.use_gcpl = use_gcpl
         self.evidence = evidence
         self.num_classes = model.head_classes
-        self.device_nms = device_nms
         self.device_post = device_post
         self.n_candidates = n_candidates
         self.device_ingest = device_ingest
@@ -546,7 +544,7 @@ class InferencePipeline:
                                           flow_data)
         dec, offsets = self.decode_video(data, sample_count, max_batch,
                                          flow_data)
-        return self._post(dec, offsets, sample_fps)
+        return self.post_video(dec, offsets, sample_fps)
 
     def _shared_streams(self, data: np.ndarray,
                         flow_data: Optional[np.ndarray], name: str = ''
@@ -583,14 +581,15 @@ class InferencePipeline:
         parts = [self.span_decode(bufs, bases_d[i:i + step],
                                   local_d[i:i + step], frames_valid)
                  for i in range(0, len(bases), step)]
-        return self._post(_slice_decoded(_cat_decoded(parts), 0, n),
-                          offsets, sample_fps)
+        return self.post_video(_slice_decoded(_cat_decoded(parts), 0, n),
+                               offsets, sample_fps)
 
-    def _post(self, dec: DecodedWindows, offsets: Sequence[int],
-              sample_fps: float, name: Optional[str] = None
-              ) -> List[Dict[str, Any]]:
-        """One video's proposals from its decoded windows. Span
-        `post.video` (its request id the video's name)."""
+    def post_video(self, dec: DecodedWindows, offsets: Sequence[int],
+                   sample_fps: float, name: Optional[str] = None
+                   ) -> List[Dict[str, Any]]:
+        """One video's proposals from its decoded windows (on the
+        device), by the device or the host path. Span `post.video` (its
+        request id the video's name)."""
         with profiling.span('post.video', name):
             if self.device_post:
                 return self.post_process_on_device(dec, offsets, sample_fps)
@@ -607,9 +606,9 @@ class InferencePipeline:
                        results: Dict[str, List[Dict[str, Any]]]) -> None:
         """Post-process one finished video from its collected decode
         rows (still on the device), as run_video does."""
-        results[vid['name']] = self._post(_cat_decoded(vid['got']),
-                                          vid['offsets'], vid['fps'],
-                                          vid['name'])
+        results[vid['name']] = self.post_video(_cat_decoded(vid['got']),
+                                               vid['offsets'], vid['fps'],
+                                               vid['name'])
 
     # -------------------------------------------------------- per dataset
 
@@ -987,130 +986,43 @@ class InferencePipeline:
     def post_process_on_device(self, dec: DecodedWindows,
                                offsets: Sequence[int], sample_fps: float
                                ) -> List[Dict[str, Any]]:
-        """Seconds shift + per-class top-k preselect + batched soft-NMS of
-        every class at once, on the device; the host formats kept rows.
-        Spans `post.preselect`, `post.soft_nms`, `post.fetch` (the kept
-        blocks' copy to the host) and `post.format`."""
-        with profiling.span('post.preselect'):
-            cls_cols, cands, valid = self._preselect(dec, offsets,
-                                                     sample_fps)
-        with profiling.span('post.soft_nms'):
-            blocks, _ = soft_nms_device(cands, sigma=self.nms_sigma,
-                                        top_k=self.top_k, valid=valid)
-        with profiling.span('post.fetch'):
-            blocks = blocks.cpu().numpy()                      # (C, k, D+1)
-        with profiling.span('post.format'):
-            return self._format(blocks, cls_cols)
-
-    def _preselect(self, dec: DecodedWindows, offsets: Sequence[int],
-                   sample_fps: float):
-        """(the class columns, each class's top-k candidates (C, k, D)
-        with seconds, score and extras, their validity (C, k))."""
-        k = self.num_classes
-        cls_cols = list(range(k)) if self.os_head else list(range(1, k))
-        segments, scores = dec.segments, dec.scores
-        w, p = segments.shape[:2]
+        """One video's proposals by `infer.post.device_blocks` on the
+        decoded rows' device (the scores in their own dtype); the host
+        formats the kept rows. Spans `post.preselect`, `post.soft_nms`,
+        `post.fetch` (the kept blocks' copy to the host) and
+        `post.format`."""
         off = torch.as_tensor(np.asarray(offsets, np.float32),
-                              device=segments.device)
-        seconds = ((segments.float() + off[:, None, None])
-                   / float(sample_fps)).reshape(-1, 2)
-        flat = scores.reshape(-1, scores.shape[-1])
-        gate = torch.ones(w * p, dtype=torch.bool, device=flat.device)
-        extras = []
-        if self.use_edl:
-            extras.append(dec.uncertainty.reshape(-1))
-        if self.os_head:
-            a = dec.actionness.reshape(-1)
-            gate = gate & (a > 0.5)
-            extras.append(a)
-        k_eff = min(self.n_candidates, flat.shape[0])
-        stacked = flat[:, cls_cols].t()                       # (C, N)
-        sc = torch.where((stacked > self.conf_thresh) & gate[None],
-                         stacked, 0.0)
-        # a stable sort puts equal scores in index order, as lax.top_k
-        top_sc, idx = torch.sort(sc, dim=1, descending=True, stable=True)
-        top_sc, idx = top_sc[:, :k_eff], idx[:, :k_eff]
-        cols = [seconds[idx], top_sc[..., None].float()]
-        cols += [e[idx][..., None].float() for e in extras]
-        return cls_cols, torch.cat(cols, dim=-1), top_sc > 0
-
-    def _format(self, blocks: np.ndarray, cls_cols: Sequence[int]
-                ) -> List[Dict[str, Any]]:
-        """The kept rows of each class's soft-NMS block as proposals."""
-        proposals: List[Dict[str, Any]] = []
-        for ci, cl in enumerate(cls_cols):
-            kept = blocks[ci]
-            kept = kept[(kept[:, -1] > 0) & (kept[:, 2] > 0)]
-            cl_idx = cl + 1 if self.os_head else cl
-            for row in kept:
-                proposals.append({
-                    'cls': int(cl_idx),
-                    'score': float(row[2]),
-                    'segment': [float(row[0]), float(row[1])],
-                    'uncertainty': float(row[3]) if self.use_edl else 0.0,
-                    'actionness': (float(row[-2]) if self.os_head
-                                   else 0.0),
-                })
-        return proposals
-
-    def _soft_nms(self, block: np.ndarray) -> np.ndarray:
-        """Greedy gaussian-decay suppression of one class's candidates:
-        host numpy, or with device_nms the block padded to a power of two
-        (at least 64 rows) through `soft_nms_device`; the same rows are
-        kept either way."""
-        if not self.device_nms:
-            kept, _ = soft_nms_numpy(block, sigma=self.nms_sigma,
-                                     top_k=self.top_k)
-            return kept
-        n, d = block.shape
-        n_pad = max(64, 1 << (n - 1).bit_length())
-        padded = torch.zeros((n_pad, d), dtype=torch.float32,
-                             device=self.device)
-        padded[:n] = torch.from_numpy(np.ascontiguousarray(
-            block, np.float32)).to(self.device)
-        valid = torch.arange(n_pad, device=self.device) < n
-        out, _ = soft_nms_device(padded, sigma=self.nms_sigma,
-                                 top_k=self.top_k, valid=valid)
-        out = out.cpu().numpy()
-        return out[out[:, -1] > 0][:, :-1]
+                              device=dec.segments.device)
+        seconds = (dec.segments.float() + off[:, None, None]) \
+            / float(sample_fps)
+        k = dec.scores.shape[-1]
+        cls_cols = post.class_columns(self.num_classes, self.os_head)
+        blocks = post.device_blocks(
+            seconds.reshape(1, -1, 2), dec.scores.reshape(1, -1, k),
+            dec.uncertainty.reshape(1, -1) if self.use_edl else None,
+            dec.actionness.reshape(1, -1) if self.os_head else None,
+            cls_cols, self.conf_thresh, self.os_head, self.n_candidates,
+            self.nms_sigma, self.top_k)
+        with profiling.span('post.fetch'):
+            blocks = blocks[0].cpu().numpy()                  # (C, k, D+1)
+        with profiling.span('post.format'):
+            return post.proposals(post.device_rows(blocks, cls_cols),
+                                  self.use_edl, self.os_head)
 
     def post_process(self, seconds: np.ndarray, conf: np.ndarray,
                      unct: Optional[np.ndarray], act: Optional[np.ndarray]
                      ) -> List[Dict[str, Any]]:
-        """Host path: per-class filter + soft-NMS + top-k
-        (test.py:143-200). seconds (W, P, 2), conf (W, P, K)."""
-        w, p, k = conf.shape
-        seconds = seconds.reshape(-1, 2)
-        conf = conf.reshape(-1, k)
-        flat_unct = unct.reshape(-1) if unct is not None else None
-        flat_act = act.reshape(-1) if act is not None else None
-        cls_range = range(0, k) if self.os_head else range(1, k)
-        proposals: List[Dict[str, Any]] = []
-        for cl in cls_range:
-            mask = conf[:, cl] > self.conf_thresh
-            if self.os_head:
-                mask &= flat_act > 0.5
-            if not mask.any():
-                continue
-            cols = [seconds[mask], conf[mask, cl][:, None]]
-            if self.use_edl:
-                cols.append(flat_unct[mask][:, None])
-            if self.os_head:
-                cols.append(flat_act[mask][:, None])
-            with profiling.span('post.soft_nms'):
-                kept = self._soft_nms(np.concatenate(cols, axis=1))
-            cl_idx = cl + 1 if self.os_head else cl
-            for row in kept:
-                if row[2] <= 0:
-                    continue
-                proposals.append({
-                    'cls': int(cl_idx),
-                    'score': float(row[2]),
-                    'segment': [float(row[0]), float(row[1])],
-                    'uncertainty': float(row[3]) if self.use_edl else 0.0,
-                    'actionness': (float(row[-1]) if self.os_head else 0.0),
-                })
-        return proposals
+        """Host path, `infer.post.host_rows`: per-class filter + numpy
+        soft-NMS (test.py:143-200). seconds (W, P, 2), conf (W, P, K),
+        unct and act (W, P) or None."""
+        k = conf.shape[-1]
+        rows = post.host_rows(
+            seconds.reshape(-1, 2), conf.reshape(-1, k),
+            unct.reshape(-1) if self.use_edl else None,
+            act.reshape(-1) if self.os_head else None,
+            post.class_columns(k, self.os_head), self.conf_thresh,
+            self.os_head, self.nms_sigma, self.top_k)
+        return post.proposals(rows, self.use_edl, self.os_head)
 
 
 def packed_frames(te: dict) -> int:

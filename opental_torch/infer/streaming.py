@@ -5,7 +5,7 @@ Counterpart of `opental_tpu/infer/streaming.py`. Frames arrive in chunks
 its frames exist, and `finalize()` gives the offline pipeline's
 proposals for the whole stream: the same window offsets (with the
 irregular tail window, test.py:48-56) and the same post-processing
-(`InferencePipeline._finish_packed`: host soft-NMS or the fused device
+(`InferencePipeline.post_video`: host soft-NMS or the fused device
 post).
 
 Memory is bounded: frames that no later window can read are trimmed as
@@ -23,9 +23,9 @@ import numpy as np
 
 from opental_torch.data import transforms
 from opental_torch.infer.decode import DecodedWindows
-from opental_torch.infer.pipeline import (InferencePipeline, _require_u8,
-                                          _slice_decoded, ingest_windows,
-                                          window_offsets)
+from opental_torch.infer.pipeline import (InferencePipeline, _cat_decoded,
+                                          _require_u8, _slice_decoded,
+                                          ingest_windows, window_offsets)
 
 
 class StreamingSession:
@@ -169,11 +169,8 @@ class StreamingSession:
         return self._windows_run - before
 
     def _results(self, offsets: List[int]) -> List[Dict[str, Any]]:
-        vid = {'name': self.name, 'offsets': offsets,
-               'fps': self.sample_fps, 'need': 0, 'got': list(self._got)}
-        results: Dict[str, List[Dict[str, Any]]] = {}
-        self.pipe._finish_packed(vid, results)
-        return results[self.name]
+        return self.pipe.post_video(_cat_decoded(self._got), offsets,
+                                    self.sample_fps, self.name)
 
     def preview(self) -> List[Dict[str, Any]]:
         """Proposals from the windows completed so far: a mid-stream

@@ -11,10 +11,11 @@ staged with each video's frames-valid and normalized on the card
 (`infer.pipeline.ingest_windows`: the reference's 127.5 pad normalizes
 to exactly 0.0); float npys take the host-normalized path. The next
 batch loads on a host thread (`data.prefetch.prefetch_items`) while the
-card scores the current one. Post-processing filters and soft-NMSes
-every (video, class) of a batch at once on the card (`build_device_post`;
-189 priors fit the candidate preselect, so it keeps what the host loop
-keeps), or with `testing.device_nms: false` in the host numpy loop.
+card scores the current one. Post-processing (`infer/post.py`) filters
+and soft-NMSes every (video, class) of a batch at once on the card
+(`device_blocks`; 189 priors fit the candidate preselect, so it keeps
+what the host loop keeps), or with `testing.device_nms: false` in the
+host numpy loop (`host_rows`).
 Output keys drop the 'v_' prefix and segments are clamped to the video's
 duration (anet/test.py:183-239). `--binary` is the binary-actionness
 variant: one class per video from a video-level classifier file, its
@@ -28,8 +29,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
-                    Tuple, Union)
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,59 +40,12 @@ from opental_torch.config import Config, build_arg_parser, \
 from opental_torch.data import transforms
 from opental_torch.data.anet import get_video_info
 from opental_torch.data.prefetch import prefetch_items
+from opental_torch.infer import post
 from opental_torch.infer.decode import decode_windows
 from opental_torch.infer.pipeline import (_require_u8, fused_forward,
                                           ingest_windows)
-from opental_torch.ops.nms import soft_nms_device, soft_nms_numpy
 from opental_torch.tools.test import inference_dtype, load_variables
 from opental_torch.utils import profiling
-
-
-def build_device_post(cls_cols: Sequence[int], use_edl: bool,
-                      os_head: bool, binary: bool, sigma: float,
-                      top_k: int, n_candidates: int = 512) -> Callable:
-    """post(segments (B, P, 2) frames, scores (B, P, K), unct (B, P) or
-    None, act (B, P) or None, fps (B,)) -> (B, C, k, D + 1) blocks on the
-    card: per video and class the score filter, a top-k preselect and
-    soft-NMS, all (video, class) rows in one batched `soft_nms_device`
-    (`opental_tpu/tools/test_anet.py:38-86`). The last column flags the
-    kept rows. Span `post.soft_nms` around the soft-NMS."""
-    conf_floor = 1e-9 if binary else 0.001   # test_binary.py:125
-    # binary mode also lowers the soft-NMS score floor to 1e-9
-    # (test_binary.py:155 vs test.py:166's 0.001)
-    nms_floor = 1e-9 if binary else 1e-3
-    cols_idx = list(cls_cols)
-
-    def post(segments, scores, unct, act, fps):
-        seconds = segments.float() / fps[:, None, None]      # (B, P, 2)
-        b, p = seconds.shape[:2]
-        k_eff = min(n_candidates, p)
-        sc = scores[..., cols_idx].transpose(1, 2).float()   # (B, C, P)
-        keep = sc > conf_floor
-        if os_head and not binary:
-            keep = keep & (act > 0.5)[:, None, :]            # test.py:135
-        sc = torch.where(keep, sc, 0.0)
-        # a stable sort puts equal scores in index order, as lax.top_k
-        top_sc, idx = torch.sort(sc, dim=-1, descending=True, stable=True)
-        top_sc, idx = top_sc[..., :k_eff], idx[..., :k_eff]  # (B, C, k)
-
-        def take(v):                                         # v (B, P, d)
-            return torch.gather(
-                v[:, None].expand(-1, len(cols_idx), -1, -1), 2,
-                idx[..., None].expand(-1, -1, -1, v.shape[-1]))
-
-        cols = [take(seconds), top_sc[..., None]]
-        if use_edl:
-            cols.append(take(unct.float()[..., None]))
-        if os_head:
-            cols.append(take(act.float()[..., None]))
-        with profiling.span('post.soft_nms'):
-            kept, _ = soft_nms_device(torch.cat(cols, -1), sigma=sigma,
-                                      top_k=top_k, score_threshold=nms_floor,
-                                      valid=top_sc > 0)
-        return kept
-
-    return post
 
 
 def load_class_names(class_info_path: str) -> Dict[int, str]:
@@ -139,35 +92,6 @@ def pad_video_batch(arr: Optional[np.ndarray], video_batch: int
     return np.concatenate([arr, reps], 0)
 
 
-def _rows(post_block: Optional[np.ndarray], segs, scores, unct, act,
-          vi: int, cl: int, fps: float, binary: bool, os_head: bool,
-          use_edl: bool, sigma: float, top_k: int) -> np.ndarray:
-    """The kept [start s, end s, score, (unct), (act)] rows of one video
-    and class: from the device block, or by the host loop."""
-    if post_block is not None:
-        return post_block[(post_block[:, -1] > 0)
-                          & (post_block[:, 2] > 0)][:, :-1]
-    if binary:
-        # binary filtering keeps everything above 1e-9, no actionness
-        # gate (test_binary.py:125)
-        mask = scores[vi, :, cl] > 1e-9
-    else:
-        mask = scores[vi, :, cl] > 0.001                    # test.py:134
-        if os_head:
-            mask &= act[vi] > 0.5
-    if not mask.any():
-        return np.zeros((0, 3))
-    cols = [segs[vi][mask] / fps, scores[vi, mask, cl][:, None]]
-    if use_edl:
-        cols.append(unct[vi, mask][:, None])
-    if os_head:
-        cols.append(act[vi, mask][:, None])
-    kept, _ = soft_nms_numpy(np.concatenate(cols, 1), sigma=sigma,
-                             top_k=top_k,
-                             score_threshold=1e-9 if binary else 1e-3)
-    return kept
-
-
 class AnetInference:
     """ActivityNet inference over in-memory videos, built once from the
     model (and the flow model under fusion) and the configuration's
@@ -179,16 +103,18 @@ class AnetInference:
     decides for the whole run) as raw bytes with their frames-valid,
     normalized on the card (`ingest_windows`); other frames as float32
     on the host (`stage_window`). Post-processing runs on the card
-    (`build_device_post`) or, with `testing.device_nms: false`, in the
-    host numpy loop; segments are clamped to the video's duration
-    (anet/test.py:183-239). `binary` is the binary-actionness mode's
-    post-processing (its score floors, no actionness gate).
+    (`infer.post.device_blocks`) or, with `testing.device_nms: false`, in
+    the host numpy loop (`infer.post.host_rows`); segments are clamped to
+    the video's duration (anet/test.py:183-239). `binary` is the
+    binary-actionness mode's post-processing (score floors of 1e-9, no
+    actionness gate; test_binary.py:125, 155).
 
     Spans: `ingest.stage` (prefetch thread; rid the batch),
     `ingest.wait`, `infer.forward` (rid the batch; counters
     `infer.rows`, the padded rows, and `infer.windows`, the videos) and
-    `post.batch` (rid the batch) > `post.soft_nms`, `post.fetch`,
-    `post.format`.
+    `post.batch` (rid the batch) > `post.preselect`, `post.soft_nms`,
+    `post.fetch`, `post.format` (with the host loop: `post.fetch`,
+    `post.format` > `post.soft_nms`).
     """
 
     def __init__(self, cfg: Config, model: torch.nn.Module,
@@ -202,18 +128,17 @@ class AnetInference:
         flags = factory.model_flags(cfg)
         self.use_edl, self.os_head = flags['use_edl'], flags['os_head']
         self.evidence = flags['evidence']
-        num_classes = flags['num_classes'] - (1 if self.os_head else 0)
-        self.cls_cols = list(range(0, num_classes) if self.os_head
-                             else range(1, num_classes))
+        self.cls_cols = post.class_columns(
+            flags['num_classes'] - (1 if self.os_head else 0), self.os_head)
         self.models = tuple(m.to(self.device).eval()
                             for m in (model, flow_model) if m is not None)
         self.video_batch, self.binary = video_batch, binary
         self.sigma = te.get('nms_sigma', 0.85)
         self.top_k = te.get('top_k', 5000)
-        self.post_fn = (build_device_post(
-            self.cls_cols, self.use_edl, self.os_head, binary, self.sigma,
-            self.top_k, te.get('n_candidates', 512))
-            if te.get('device_nms', True) else None)
+        self.device_post = te.get('device_nms', True)
+        self.n_candidates = te.get('n_candidates', 512)
+        # test_binary.py:125, 155 against test.py:134, 166
+        self.floor = 1e-9 if binary else 0.001
 
     def run(self, videos) -> Dict[str, List[Dict[str, Any]]]:
         """{name: proposals} of every video (see `batches`)."""
@@ -301,49 +226,34 @@ class AnetInference:
     def _post(self, dec, chunk, fps: np.ndarray
               ) -> List[Tuple[str, List[dict]]]:
         """Each video of the batch with its proposals."""
-        blocks = segs = scores = unct = act = None
-        if self.post_fn is not None:
-            blocks = self.post_fn(dec.segments, dec.scores, dec.uncertainty,
-                                  dec.actionness,
-                                  torch.from_numpy(fps).to(self.device))
+        unct = dec.uncertainty if self.use_edl else None
+        act = dec.actionness if self.os_head else None
+        gate = self.os_head and not self.binary           # test.py:135
+        if self.device_post:
+            rate = torch.from_numpy(fps).to(self.device)
+            blocks = post.device_blocks(
+                dec.segments.float() / rate[:, None, None],
+                dec.scores.float(), unct, act, self.cls_cols, self.floor,
+                gate, self.n_candidates, self.sigma, self.top_k,
+                nms_floor=self.floor)
             with profiling.span('post.fetch'):
                 blocks = blocks.cpu().numpy()          # (B, C, k, D + 1)
+            rows = [post.device_rows(b, self.cls_cols) for b in blocks]
         else:
             with profiling.span('post.fetch'):
-                segs = dec.segments.float().cpu().numpy()
-                scores = dec.scores.float().cpu().numpy()
-                unct = (dec.uncertainty.float().cpu().numpy()
-                        if self.use_edl else None)
-                act = (dec.actionness.float().cpu().numpy()
-                       if self.os_head else None)
+                segs, scores, unct, act = [
+                    None if a is None else a.float().cpu().numpy()
+                    for a in (dec.segments, dec.scores, unct, act)]
+            rows = [post.host_rows(
+                segs[vi] / fps_v, scores[vi],
+                None if unct is None else unct[vi],
+                None if act is None else act[vi], self.cls_cols, self.floor,
+                gate, self.sigma, self.top_k, nms_floor=self.floor)
+                for vi, (_, _, fps_v, *_) in enumerate(chunk)]
         with profiling.span('post.format'):
-            out = []
-            for vi, (name, _, fps_v, duration, *_) in enumerate(chunk):
-                props = []
-                for ci, cl in enumerate(self.cls_cols):
-                    kept = _rows(None if blocks is None else blocks[vi, ci],
-                                 segs, scores, unct, act, vi, cl, fps_v,
-                                 self.binary, self.os_head, self.use_edl,
-                                 self.sigma, self.top_k)
-                    cl_idx = cl + 1 if self.os_head else cl
-                    for row in kept:
-                        if row[2] <= 0:
-                            continue
-                        start_t = max(0.0, float(row[0]))
-                        end_t = min(duration, float(row[1]))
-                        if end_t <= start_t:
-                            continue
-                        props.append({
-                            'cls': cl_idx,
-                            'score': float(row[2]),
-                            'segment': [start_t, end_t],
-                            'uncertainty': (float(row[3]) if self.use_edl
-                                            else 0.0),
-                            'actionness': (float(row[-1]) if self.os_head
-                                           else 0.0),
-                        })
-                out.append((name, props))
-            return out
+            return [(name, post.proposals(r, self.use_edl, self.os_head,
+                                          duration))
+                    for (name, _, _, duration, *_), r in zip(chunk, rows)]
 
 
 def run_test_anet(cfg: Config, max_videos: Optional[int] = None,

@@ -35,12 +35,12 @@ from opental_torch.data.anet import get_video_info as get_anet_video_info
 from opental_torch.data.thumos import (ThumosTrainDataset,
                                        get_class_index_map, get_video_anno,
                                        get_video_info)
+from opental_torch.infer import post
 from opental_torch.infer.pipeline import (ingest_windows, stack_windows_u8,
                                           window_offsets)
 from opental_torch.openset.openmax import (OpenMax, accumulate_mavs,
                                            extract_positive_features,
                                            save_mav_dist, weibull_fitting)
-from opental_torch.ops.nms import soft_nms_numpy
 from opental_torch.tools.test import load_variables
 from opental_torch.tools.test_cross_data import exclude_overlapping
 
@@ -177,25 +177,13 @@ class OpenMaxInference:
             prop_feat.reshape(-1, prop_feat.shape[-1])).reshape(n, p, k)
         scores = (probs + prop_probs) / 2.0 * center[..., None]
 
-        seconds_flat = seconds.reshape(-1, 2)
-        scores_flat = scores.reshape(-1, k)
-        props: List[dict] = []
-        for cl in range(1, self.num_classes):
-            mask = scores_flat[:, cl] > self.conf_thresh
-            if not mask.any():
-                continue
-            block = np.concatenate(
-                [seconds_flat[mask], scores_flat[mask, cl][:, None]], 1)
-            kept, _ = soft_nms_numpy(block, sigma=self.nms_sigma,
-                                     top_k=self.top_k)
-            for row in kept:
-                if row[2] <= 0:
-                    continue
-                props.append({'label': self.idx_to_class[cl],
-                              'score': float(row[2]),
-                              'segment': [float(row[0]), float(row[1])],
-                              'uncertainty': 0.0, 'actionness': 0.0})
-        return props
+        rows = post.host_rows(seconds.reshape(-1, 2), scores.reshape(-1, k),
+                              None, None,
+                              post.class_columns(self.num_classes, False),
+                              self.conf_thresh, False, self.nms_sigma,
+                              self.top_k)
+        return [{'label': self.idx_to_class[d.pop('cls')], **d}
+                for d in post.proposals(rows, False, False)]
 
 
 def _write(payload: dict, path: str) -> str:

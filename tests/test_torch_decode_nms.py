@@ -17,6 +17,7 @@ from opental_tpu.ops import nms as jnms
 
 from opental_torch.infer import decode as td
 from opental_torch.infer import pipeline as tpipe
+from opental_torch.infer import post as tpost
 from opental_torch.ops import _build, soft_nms_cuda
 from opental_torch.ops import nms as tnms
 from opental_torch.utils import profiling
@@ -202,6 +203,59 @@ def test_device_post_matches_jax(seed, n_cand):
         (seg + np.asarray(offsets, np.float32)[:, None, None]) / fps,
         scores, unct, act)
     assert host == want_host
+
+
+# (os_head, use_edl, videos, score floor and soft-NMS floor, actionness
+# gate, sigma, durations): each caller's settings of `infer.post`
+POST_CASES = {
+    'thumos_oshead_edl': (True, True, 1, 0.01, 1e-3, True, 0.5, None),
+    'thumos_softmax': (False, False, 1, 0.01, 1e-3, False, 0.5, None),
+    'anet_oshead_edl': (True, True, 3, 0.001, 1e-3, True, 0.85,
+                        [30.0, 9.0, 61.5]),
+    'anet_binary': (True, True, 3, 1e-9, 1e-9, False, 0.85,
+                    [30.0, 9.0, 61.5]),
+}
+
+
+@pytest.mark.parametrize('case', list(POST_CASES))
+def test_device_post_matches_host(case):
+    """`infer.post.device_blocks` (the plain loop on the CPU) with every
+    candidate in the preselect keeps the rows `host_rows` keeps, video
+    by video, and `proposals` formats both alike (with the duration clamp
+    where a duration is given)."""
+    os_head, use_edl, b, floor, nms_floor, gate, sigma, durations = \
+        POST_CASES[case]
+    seg, scores, unct, act = random_dec(seed=3, n=b * 2)
+    if durations is not None:       # ANet: one 768-frame window a video
+        seg = seg.reshape(b, -1, 2) * 3
+        scores = scores.reshape(b, -1, K) * 0.05
+        unct, act = unct.reshape(b, -1), act.reshape(b, -1)
+    fps = torch.from_numpy(np.float32([10.0, 7.5, 29.97][:b]))
+    seconds = torch.from_numpy(seg).reshape(b, -1, 2) / fps[:, None, None]
+    scores_t = torch.from_numpy(scores).reshape(b, -1, K)
+    unct_t = torch.from_numpy(unct).reshape(b, -1) if use_edl else None
+    act_t = torch.from_numpy(act).reshape(b, -1) if os_head else None
+    cls_cols = tpost.class_columns(K, os_head)
+    n = scores_t.shape[1]
+    blocks = tpost.device_blocks(seconds, scores_t, unct_t, act_t, cls_cols,
+                                 floor, gate, n, sigma, 200, nms_floor)
+    assert blocks.shape == (b, len(cls_cols), n, 4 + use_edl + os_head)
+    total = 0
+    for v in range(b):
+        duration = None if durations is None else durations[v]
+        got = tpost.proposals(tpost.device_rows(blocks[v].numpy(), cls_cols),
+                              use_edl, os_head, duration)
+        host = [None if t is None else t[v].numpy()
+                for t in (seconds, scores_t, unct_t, act_t)]
+        want = tpost.proposals(
+            tpost.host_rows(*host, cls_cols, floor, gate, sigma, 200,
+                            nms_floor), use_edl, os_head, duration)
+        _same_props(got, want)
+        if duration is not None:
+            assert all(0 <= p['segment'][0] < p['segment'][1] <= duration
+                       for p in got)
+        total += len(got)
+    assert total > 20
 
 
 def test_window_offsets_and_device_windows():

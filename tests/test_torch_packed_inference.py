@@ -593,36 +593,6 @@ def test_stage_frames_chunked_equals_monolithic():
         stage_frames(buf, pad_to=349)
 
 
-def test_device_nms_matches_host_nms():
-    """device_nms=True (each class's block padded to a power of two >=
-    64 through `soft_nms_device`) keeps the same rows as the numpy
-    soft-NMS."""
-    model = BDNet(num_classes=5, os_head=True, use_edl=True,
-                  frame_num=CLIP, crop_size=CROP)
-    kw = pipeline_kwargs(device_post=False)
-    host = InferencePipeline(model, **kw)
-    dev = InferencePipeline(model, device_nms=True, **kw)
-    rng = np.random.RandomState(3)
-    for w in (1, 3, 9):
-        start = rng.uniform(0, 20, (w, 40, 1)).astype(np.float32)
-        seconds = np.concatenate(
-            [start, start + rng.uniform(0.5, 6, (w, 40, 1))], -1
-        ).astype(np.float32)
-        conf = rng.uniform(0, 0.3, (w, 40, 5)).astype(np.float32)
-        unct = rng.uniform(0, 1, (w, 40)).astype(np.float32)
-        act = rng.uniform(0.3, 1, (w, 40)).astype(np.float32)
-        want = host.post_process(seconds, conf, unct, act)
-        got = dev.post_process(seconds, conf, unct, act)
-        assert len(want) > 10
-        assert len(got) == len(want)
-        for a, b in zip(want, got):
-            assert a['cls'] == b['cls']
-            np.testing.assert_allclose(a['score'], b['score'], rtol=1e-5)
-            assert a['segment'] == b['segment']
-            assert a['uncertainty'] == b['uncertainty']
-            assert a['actionness'] == b['actionness']
-
-
 def test_float_frames_are_refused():
     model = BDNet(num_classes=5, os_head=True, use_edl=True,
                   frame_num=CLIP, crop_size=CROP)

@@ -13,15 +13,14 @@ installed:
 Without a card its tests skip (a CUDA kernel has no CPU mode).
 """
 
-from types import SimpleNamespace
-
 import numpy as np
 import pytest
 import torch
 
+from opental_torch.infer import post
+from opental_torch.infer.decode import DecodedWindows
 from opental_torch.infer.pipeline import InferencePipeline
 from opental_torch.ops import nms, soft_nms_cuda
-from opental_torch.tools.test_anet import build_device_post
 from opental_torch.utils import profiling
 
 
@@ -76,7 +75,7 @@ def edge_rows(n=300, d=5):
 def cases():
     """name -> (segments, valid or None, score floor)."""
     row_1024 = saturated(1, 1024, 5, 3)[0]
-    row_1024[1000:] = 0.0                   # `_soft_nms`'s zero padding
+    row_1024[1000:] = 0.0                   # zero padding past the valid rows
     edge, edge_valid = edge_rows()
     edge_odd, edge_odd_valid = edge_rows(n=1025, d=3)
     return {
@@ -173,41 +172,58 @@ def test_ties_pick_the_lowest_index_first():
         assert kept[:picked].all() and not kept[picked:].any()
 
 
+class _Stub(torch.nn.Module):
+    head_classes = 16
+
+
 @pytest.mark.cuda
-def test_callers_take_the_kernel():
-    """`InferencePipeline._soft_nms` (device_nms, one padded row, also
-    past `REGISTER_N`) and ANet's batched device post each launch the
-    kernel once and keep the plain loop's rows."""
+def test_callers_take_the_kernel(monkeypatch):
+    """THUMOS's `InferencePipeline.post_process_on_device` (one video,
+    bf16 scores) and ANet's batched `infer.post.device_blocks` each
+    launch the kernel once and keep the plain loop's rows."""
     need_card()
     dev = torch.device('cuda')
-    pipe = SimpleNamespace(device_nms=True, nms_sigma=0.5, top_k=5000,
-                           device=dev)
-    for n, n_pad, seed in ((1000, 1024, 8), (9000, 16384, 15)):
-        block = saturated(1, n, 5, seed, video_s=n / 5)[0]
-        launches = soft_nms_cuda.LAUNCHES
-        kept = InferencePipeline._soft_nms(pipe, block)
-        assert soft_nms_cuda.LAUNCHES == launches + 1
-        padded = torch.zeros((n_pad, 5), device=dev)
-        padded[:n] = torch.from_numpy(block).cuda()
-        want, _ = nms.soft_nms_plain(padded, 0.5, 5000, 1e-3,
-                                     torch.arange(n_pad, device=dev) < n)
-        want = want.cpu().numpy()
-        np.testing.assert_array_equal(kept, want[want[:, -1] > 0][:, :-1])
-
     rng = np.random.RandomState(9)
-    b, p, k = 2, 630, 21
-    start = rng.uniform(0, 700, (b, p, 1))
-    segments = torch.from_numpy(np.concatenate(
-        [start, start + rng.uniform(5, 200, (b, p, 1))], -1)).float().cuda()
-    scores = torch.from_numpy(rng.uniform(0, 0.2, (b, p, k))).float().cuda()
-    unct = torch.from_numpy(rng.uniform(0, 1, (b, p))).float().cuda()
-    act = torch.from_numpy(rng.uniform(0, 1, (b, p))).float().cuda()
-    fps = torch.full((b,), 5.0, device=dev)
-    post = build_device_post(range(1, k), True, True, False, 0.5, 100)
+
+    def uniform(lo, hi, shape, dtype=torch.float32):
+        return torch.from_numpy(rng.uniform(lo, hi, shape)).to(dev, dtype)
+
+    w, p, k = 9, 126, _Stub.head_classes
+    start = uniform(0, 200, (w, p, 1))
+    dec = DecodedWindows(torch.cat([start, start + uniform(2, 40, (w, p, 1))],
+                                   -1).clamp(0, 256),
+                         uniform(0, 0.2, (w, p, k), torch.bfloat16),
+                         uniform(0, 1, (w, p), torch.bfloat16),
+                         uniform(0, 1, (w, p), torch.bfloat16))
+    pipe = InferencePipeline(_Stub(), use_edl=True, os_head=True, top_k=200,
+                             device=dev)
+    offsets = [128 * i for i in range(w)]
+    b, p_anet, k_anet = 2, 630, 21
+    start = uniform(0, 700, (b, p_anet, 1))
+    anet = (torch.cat([start, start + uniform(5, 200, (b, p_anet, 1))], -1)
+            / torch.full((b,), 5.0, device=dev)[:, None, None],
+            uniform(0, 0.2, (b, p_anet, k_anet)),
+            uniform(0, 1, (b, p_anet)), uniform(0, 1, (b, p_anet)),
+            list(range(1, k_anet)), 0.001, True, 512, 0.5, 100)
+
     launches = soft_nms_cuda.LAUNCHES
-    out = post(segments, scores, unct, act, fps)
+    got = pipe.post_process_on_device(dec, offsets, 10.0)
     assert soft_nms_cuda.LAUNCHES == launches + 1
-    assert out.shape == (b, k - 1, 512, 6)
+    blocks = post.device_blocks(*anet)
+    assert soft_nms_cuda.LAUNCHES == launches + 2
+    assert blocks.shape == (b, k_anet - 1, 512, 6)
+
+    monkeypatch.setattr(post, 'soft_nms_device', nms.soft_nms_plain)
+    want = pipe.post_process_on_device(dec, offsets, 10.0)
+    assert len(got) > 100 and len(got) == len(want)
+    for g, x in zip(got, want):
+        assert (g['cls'], g['segment'], g['uncertainty'], g['actionness']) \
+            == (x['cls'], x['segment'], x['uncertainty'], x['actionness'])
+        np.testing.assert_allclose(g['score'], x['score'], rtol=1e-6)
+    want_blocks = post.device_blocks(*anet)
+    assert soft_nms_cuda.LAUNCHES == launches + 2
+    assert torch.equal(blocks[..., -1], want_blocks[..., -1])
+    torch.testing.assert_close(blocks, want_blocks, rtol=1e-6, atol=0.0)
 
 
 @pytest.mark.cuda

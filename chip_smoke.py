@@ -129,8 +129,8 @@ Phases (any failure ends the run with a non-zero exit):
  32. model.transformer (the transformer conf head) at full width: card
      vs CPU at W=1, kernel path vs plain path at W=32, one bs=1 step
  33. tools.export: torch.export of the uint8 forward + decode, saved and
-     loaded, its opental:: custom-op nodes counted (2 B1, 1 B4 with the
-     flag), its time beside the live forward_decode: at W=128 bf16, where
+     loaded, its opental:: custom-op nodes counted (2 B1, 13 B6, 1 B4
+     with the flag), its time beside the live forward_decode: at W=128 bf16, where
      the loaded program matches live bf16 at bf16's tolerance, and with
      model.stem_pallas at W=8 in f32 with TF32 off, where it equals live
      at 1e-6
@@ -173,6 +173,19 @@ Phases (any failure ends the run with a non-zero exit):
      runs right after phase 1). Phases 6, 9, 16 and 24 hold B5 to one
      launch per post-processed video (per ANet batch); the kernels line
      counts those launches only
+ 41. B6, the I3D's 3D max pool (csrc/max_pool3d.cu), on the 13 pool
+     calls of a W=128 forward (256 x 96 x 96) and of ActivityNet's 4 x
+     768 forward, bf16: equal to the plain version (F.pad +
+     F.max_pool3d), its device time per call and summed beside the
+     bound, the plain version and the library pool on the padded input;
+     one inference forward holds B6 to 13 launches (26 for the fused
+     pair of streams), its profile to zero max_pool3d_with_indices
+     kernels, and equals the plain path's forward; a grad-enabled train
+     step launches no B6 (it runs right after phase 40). Every main-path
+     inference run (phases 6, 13, 16, 19, 20, 24, 26-29, 32-36, 38, 39)
+     holds B6 to 13 launches a forward, the forwards its held B1
+     launches count; the kernels line counts those launches only, and
+     its error is the largest |B6 - plain| of this phase's calls
 Phases 8 and 9 run with model.stem_pallas off and on. Then a `kernels`
 JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Weights and data are random, made from
@@ -192,6 +205,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -209,12 +223,13 @@ from opental_torch.infer.pipeline import (InferencePipeline,  # noqa: E402
                                           ingest_windows, window_offsets)
 from opental_torch.losses.edl import EDLState  # noqa: E402
 from opental_torch.models import bdnet as bdnet_mod  # noqa: E402
+from opental_torch.models import i3d as i3d_mod  # noqa: E402
 from opental_torch.models import pyramid  # noqa: E402
 from opental_torch.models import layers  # noqa: E402
 from opental_torch.models.bdnet import BDNet  # noqa: E402
 from opental_torch.ops import (_build, boundary_pool,  # noqa: E402
-                               boundary_pool_cuda, nms, soft_nms_cuda,
-                               stem_pack, stem_pack_cuda)
+                               boundary_pool_cuda, max_pool3d_cuda, nms,
+                               soft_nms_cuda, stem_pack, stem_pack_cuda)
 from opental_torch.openset import libmr  # noqa: E402
 from opental_torch.openset.openmax import weibull_fitting  # noqa: E402
 from opental_torch.parallel.dryrun import (  # noqa: E402
@@ -547,6 +562,119 @@ def phase_soft_nms():
     return out
 
 
+def pool3d_kernels(fn) -> tuple:
+    """(B6 kernels, PyTorch max_pool3d_with_indices kernels) in the device
+    profile of one fn()."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [(e.key, e.count) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        raise RuntimeError('pool3d profile: the profiler recorded no '
+                           'device activity')
+    return (sum(c for k, c in names if 'max_pool3d_same_kernel' in k),
+            sum(c for k, c in names if 'max_pool3d_with_indices' in k))
+
+
+def pool3d_times(label: str, windows: int, frames: int) -> dict:
+    """B6 against the plain version on every pool call of one bf16
+    forward of `windows` x `frames` frames (random inputs), and each
+    call's device ms: B6, the plain version, the library pool alone on
+    the padded input, and the bound (x and y bytes over the memory
+    rate)."""
+    rows = []
+    for i, (shape, k, s) in enumerate(i3d_mod.pool_calls(windows, frames,
+                                                         CROP)):
+        g = torch.Generator(device='cuda').manual_seed(410 + i)
+        x = torch.randn(shape, generator=g, device='cuda',
+                        dtype=torch.bfloat16)
+        y = max_pool3d_cuda.max_pool3d_same(x, k, s)
+        plain = layers.max_pool_3d_same_plain(x, k, s)
+        if not torch.equal(y, plain):
+            raise AssertionError(f'B6 != plain, {label} call {i}: {shape}')
+        xp = F.pad(x, layers._f_pad(shape[2:], k, s))
+        r = {'shape': shape, 'kernel': k, 'stride': s,
+             'ms': device_ms(lambda: max_pool3d_cuda.max_pool3d_same(
+                 x, k, s), reps=10),
+             'plain_ms': device_ms(lambda: layers.max_pool_3d_same_plain(
+                 x, k, s), reps=3),
+             'library_ms': device_ms(lambda: F.max_pool3d(xp, k, s),
+                                     reps=3),
+             'bound_ms': (x.numel() + y.numel()) * x.element_size()
+             / HBM_BYTES_PER_S * 1e3,
+             'err': (y.float() - plain.float()).abs().max().item()}
+        rows.append(r)
+        log(f'B6 {label} call {i} x {shape} {k}/{s}: kernel {r["ms"]:.4f} '
+            f'ms ({r["bound_ms"] / r["ms"]:.1%} of the bound '
+            f'{r["bound_ms"]:.4f}), plain {r["plain_ms"]:.4f}, library '
+            f'{r["library_ms"]:.4f}')
+        del x, y, plain, xp
+        torch.cuda.empty_cache()
+    tot = {key: sum(r[key] for r in rows)
+           for key in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
+    tot['err'] = max(r['err'] for r in rows)
+    log(f'B6 {label}, the 13 calls: max |B6 - plain| {tot["err"]!r}, '
+        f'kernel {tot["ms"]:.4f} ms '
+        f'({tot["bound_ms"] / tot["ms"]:.1%} of the bound '
+        f'{tot["bound_ms"]:.4f}), plain {tot["plain_ms"]:.4f}, library '
+        f'{tot["library_ms"]:.4f}; {card_line()}')
+    return {'calls': rows, **tot}
+
+
+def phase_max_pool3d(cfg, state_dict) -> dict:
+    log('== phase 41: the I3D\'s 3D max pool (B6) vs the plain version '
+        'and the library pool at the W=128 and ActivityNet shapes (bf16); '
+        'B6 launches of an inference forward, the fused pair and a train '
+        'step')
+    out = {'w128': pool3d_times('W=128', PACKED_BATCH, FRAMES),
+           'anet': pool3d_times('ANet 4 x 768', ANET_BATCH, ANET_FRAMES)}
+    model = build_model(state_dict, torch.bfloat16, 'cuda')
+    flow = build_flow_model(flow_state_dict(cfg), torch.bfloat16)
+    clips = random_clips(2, 41).to(torch.bfloat16)
+    flow_clips = clips[:, :2].contiguous()
+    before = max_pool3d_cuda.LAUNCHES
+    with torch.inference_mode():
+        got = model(clips)
+        assert max_pool3d_cuda.LAUNCHES - before == 13
+        flow(flow_clips)
+    assert max_pool3d_cuda.LAUNCHES - before == 26
+    real, i3d_mod.max_pool_3d_same = (i3d_mod.max_pool_3d_same,
+                                      layers.max_pool_3d_same_plain)
+    try:
+        with torch.inference_mode():
+            want = model(clips)
+    finally:
+        i3d_mod.max_pool_3d_same = real
+    for key in OUT_KEYS:
+        if not torch.equal(got[key], want[key]):
+            raise AssertionError(f'B6 forward != plain forward on {key}')
+
+    def forward():
+        with torch.inference_mode():
+            model(clips)
+    b6, library = pool3d_kernels(forward)
+    assert (b6, library) == (13, 0), (b6, library)
+    del model, flow, clips, flow_clips, got, want
+    torch.cuda.empty_cache()
+    train = train_model(cfg, FRAMES, CROP, 'cuda')
+    batch = train_batch(1, FRAMES, CROP, 41, 'cuda')
+    before = max_pool3d_cuda.LAUNCHES
+    b6_train, library_train = pool3d_kernels(
+        lambda: loss_and_grads(train, cfg, batch))
+    assert max_pool3d_cuda.LAUNCHES == before and b6_train == 0
+    assert library_train > 0
+    out['err'] = max(out['w128']['err'], out['anet']['err'])
+    log(f'B6: 13 launches an inference forward, 26 for the fused pair, '
+        f'profile {b6} B6 and {library} max_pool3d_with_indices kernels, '
+        f'forward == plain forward on every out key; a train step: 0 B6, '
+        f'{library_train} max_pool3d_with_indices kernels')
+    del train, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernel_vs_plain(calls):
     log('== phase 2: grouped boundary_max_pool_fwd (B1) vs plain version '
         'on the card')
@@ -769,6 +897,7 @@ def phase_end_to_end(state_dict, root):
     assert boundary_pool_cuda.BWD_LAUNCHES == 0, 'backward in inference'
     assert pack_launches() == 0, 'stem pack with model.stem_pallas off'
     hold_b5(len(lengths), 'phase 6')
+    hold_b6(launches, 'phase 6')
     n_props = check_detection_json(path, lengths)
     assert launches == POOLS_PER_FORWARD * n_forwards, (launches,
                                                         n_forwards)
@@ -1297,9 +1426,12 @@ def reset_counts():
     boundary_pool_cuda.LAUNCHES = boundary_pool_cuda.BWD_LAUNCHES = 0
     stem_pack_cuda.V1_LAUNCHES = stem_pack_cuda.V2_LAUNCHES = 0
     soft_nms_cuda.LAUNCHES = 0
+    max_pool3d_cuda.LAUNCHES = 0
 
 
 B5_MAIN = []      # B5 launches of the main-path runs that post-process
+B6_MAIN = []      # B6 launches of the main-path inference runs
+B6_PER_FORWARD = 13   # the I3D's 3D max pools: 4 endpoints, 9 branches
 
 
 def hold_b5(want: int, label: str) -> int:
@@ -1309,6 +1441,18 @@ def hold_b5(want: int, label: str) -> int:
     got = soft_nms_cuda.LAUNCHES
     assert got == want, (label, got, want)
     B5_MAIN.append(got)
+    return got
+
+
+def hold_b6(b1: int, label: str, b6: Optional[int] = None) -> int:
+    """B6's launches since the last reset_counts() (or `b6`, a rank's),
+    held to 13 a forward of the run, whose forwards B1's held launches
+    count (POOLS_PER_FORWARD a forward; a fused pair is two forwards),
+    and added to the kernels line's count."""
+    got = max_pool3d_cuda.LAUNCHES if b6 is None else b6
+    forwards, rest = divmod(b1, POOLS_PER_FORWARD)
+    assert rest == 0 and got == B6_PER_FORWARD * forwards, (label, got, b1)
+    B6_MAIN.append(got)
     return got
 
 
@@ -1564,6 +1708,7 @@ def phase_end_to_end_stem(root, lengths, warm_off):
     n_props = check_detection_json(path, lengths)
     assert counts == (0, n_forwards, POOLS_PER_FORWARD * n_forwards, 0), \
         counts
+    hold_b6(counts[2], 'phase 13')
     log(f'{n_props} proposals; launches in this run: stem pack (v1, v2) '
         f'{counts[:2]}, B1 {counts[2]} ({n_forwards} forwards)')
     torch.cuda.synchronize()
@@ -1896,6 +2041,7 @@ def phase_packed(root, dirs, videos):
     n_props = check_detection_json(path, videos)
     assert cnt == (POOLS_PER_FORWARD * forwards, 0, 0, 0), (cnt, forwards)
     hold_b5(len(videos), 'phase 16 packed')
+    hold_b6(cnt[0], 'phase 16 packed')
     launches = cnt[0]
     log(f'{n_windows} windows in {flushes} flushes, {forwards} forwards of '
         f'{PACKED_BATCH} (at least {full} full); B1 launches {cnt[0]} '
@@ -1912,6 +2058,7 @@ def phase_packed(root, dirs, videos):
         walls[mode].append(wall)
         peaks[mode] = max(peaks.get(mode, 0.0), peak)
         hold_b5(len(videos), f'phase 16 {mode}')
+        hold_b6(cnt[0], f'phase 16 {mode}')
         if mode == 'packed':
             assert cnt[0] == POOLS_PER_FORWARD * forwards, cnt
     for mode, ws in walls.items():
@@ -2057,6 +2204,7 @@ def phase_fusion(root, dirs, videos):
         n_props = check_detection_json(path, videos)
         assert cnt == (FUSED_POOLS * forwards, 0, 0,
                        2 * forwards if stem else 0), (cnt, forwards)
+        hold_b6(cnt[0], f'phase 19 stem_pallas {stem}')
         res[stem] = {'counts': cnt, 'wall': wall, 'peak': peak}
         log(f'stem_pallas {stem}: {n_props} proposals; launches B1 {cnt[0]} '
             f'({FUSED_POOLS} per fused forward), B4 {cnt[3]}; first fused '
@@ -2096,6 +2244,7 @@ def phase_threshold(root, dirs, videos):
     assert set(payload['results']) == set(videos)
     assert math.isfinite(thr) and 0.0 <= thr <= 1.0, thr
     assert cnt == (FUSED_POOLS * forwards, 0, 0, 0), (cnt, forwards)
+    hold_b6(cnt[0], 'phase 20')
     log(f'threshold {thr} (confidence scoring, 95% TPR) over '
         f'{sum(len(v) for v in payload["results"].values())} proposals; '
         f'{wall:.3f} s; B1 launches {cnt[0]}')
@@ -2537,6 +2686,7 @@ def phase_anet_inference(state_dict, root):
     n_props = check_anet_json(path, durations)
     assert cnt == (POOLS_PER_FORWARD * forwards, 0, 0, 0), (cnt, forwards)
     hold_b5(forwards, 'phase 24')
+    hold_b6(cnt[0], 'phase 24 first')
     launches += cnt[0]
     log(f'first run: {n_props} proposals, {wall:.3f} s, '
         f'{n_videos / wall:.2f} videos/s, B1 {cnt[0]} launches '
@@ -2621,6 +2771,7 @@ def phase_anet_inference(state_dict, root):
         'testing.fusion': True, 'testing.output_json': 'fused.json'})
     n_fused = check_anet_json(path, durations)
     assert cnt == (2 * POOLS_PER_FORWARD * forwards, 0, 0, 0), cnt
+    hold_b6(cnt[0], 'phase 24 fused')
     launches += cnt[0]
     log(f'fused RGB + flow: {n_fused} proposals, {wall:.3f} s, '
         f'{n_videos / wall:.2f} videos/s, B1 {cnt[0]}, peak {peak_f:.2f} GiB')
@@ -2634,6 +2785,7 @@ def phase_anet_inference(state_dict, root):
     wall = time.perf_counter() - t0
     cnt = counts()
     assert cnt == (POOLS_PER_FORWARD * forwards, 0, 0, 0), cnt
+    hold_b6(cnt[0], 'phase 24 --binary')
     launches += cnt[0]
     bin_path = os.path.join(root, 'out_anet', 'binary.json')
     n_bin = check_anet_json(bin_path, durations)
@@ -2660,6 +2812,7 @@ def phase_anet_inference(state_dict, root):
     assert set(payload['results']) == set(train_keys), payload['results']
     assert math.isfinite(thr) and 0.0 <= thr <= 1.0, thr
     assert cnt == (POOLS_PER_FORWARD, 0, 0, 0), cnt     # 3 videos, 1 batch
+    hold_b6(cnt[0], 'phase 24 calibration')
     launches += cnt[0]
     log(f'calibrate_anet (tools.threshold CLI, the 3 training videos of the '
         f'classifier file): threshold {thr}, '
@@ -2940,6 +3093,7 @@ def phase_shared(root, dirs, videos, state_dict):
     path, wall, cnt, peak = timed_run(cfgs['shared'])
     n_props = check_detection_json(path, videos)
     assert cnt == (POOLS_PER_FORWARD * plan['packed'], 0, 0, 0), (cnt, plan)
+    hold_b6(cnt[0], 'phase 26 shared')
     launches = cnt[0]
     n = plan['windows']
     log(f'{n} windows in {plan["spans"]} spans, {plan["packed"]} forwards '
@@ -2949,6 +3103,7 @@ def phase_shared(root, dirs, videos, state_dict):
     path, wall, cnt, peak = timed_run(cfgs['shared_per_video'])
     check_detection_json(path, videos)
     assert cnt[0] == POOLS_PER_FORWARD * plan['per_video'], (cnt, plan)
+    hold_b6(cnt[0], 'phase 26 shared per video')
     launches += cnt[0]
     log(f'per video (testing.packed: false): {wall:.3f} s, '
         f'{n / wall:.2f} windows/s, B1 launches {cnt[0]}, peak '
@@ -2980,6 +3135,7 @@ def phase_shared(root, dirs, videos, state_dict):
     check_detection_json(path, dict(subset))
     assert cnt == (POOLS_PER_FORWARD * sub_plan['packed'], 0, 0,
                    sub_plan['packed']), (cnt, sub_plan)
+    hold_b6(cnt[0], 'phase 26 shared stem_pallas')
     log(f'model.stem_pallas on spans (4 videos): {wall:.3f} s, B1 '
         f'{cnt[0]}, B4 {cnt[3]} launches (1 per forward)')
     return {'launches': launches, 'err': err, 'b1': b1, 'b4': b4,
@@ -3159,6 +3315,7 @@ def phase_rpl(train_cfg_path):
             math.isfinite(v) for props in results.values() for p in props
             for v in [p['score'], *p['segment']]), n_props
         out['infer'] += boundary_pool_cuda.LAUNCHES
+        hold_b6(boundary_pool_cuda.LAUNCHES, f'phase 27 {name} run_test')
         scores = 'negated distances' if name == 'gcpl' else 'distances'
         log(f'{name}: tools.train 2 steps in {wall:.1f} s (costs '
             f'{[round(r["cost"], 4) for r in recs]}, radius '
@@ -3214,6 +3371,7 @@ def phase_openmax(root):
         torch.cuda.synchronize()
         t['stage 1'] = time.perf_counter() - t0
         stage1 = boundary_pool_cuda.LAUNCHES
+        hold_b6(stage1, 'phase 28 stage 1')
         with boundary_pool.force_plain():
             test_openmax.compute_mav_dist(cfg, mav['plain'])
     names = sorted(os.listdir(mav['kernel']))
@@ -3245,6 +3403,7 @@ def phase_openmax(root):
     forwards = sum(-(-len(window_offsets(c, FRAMES, 128))
                      // test_openmax.MAX_BATCH) for c in lengths.values())
     assert stage3 == POOLS_PER_FORWARD * forwards, (stage3, forwards)
+    hold_b6(stage3, 'phase 28 stage 3')
     first = json_path + '.first'
     shutil.copy(json_path, first)
     test_openmax.main([path])        # stages 2 and 3; the MAVs are read
@@ -3305,6 +3464,7 @@ def phase_cross_search(root, lengths):
     wall = time.perf_counter() - t0
     cross = boundary_pool_cuda.LAUNCHES
     assert cross == POOLS_PER_FORWARD * forwards, (cross, forwards)
+    hold_b6(cross, 'phase 29 cross-data')
     with open(merged) as f:
         results = json.load(f)['results']
     assert set(results) == set(lengths) | kept, (set(results), kept)
@@ -3439,6 +3599,7 @@ def phase_analysis(root, search) -> dict:
                          [ln.split(' ', 1)[1] for ln in
                           buf.getvalue().splitlines()
                           if ln.startswith('wrote ')])
+            hold_b6(runs[cmd][1], f'phase 39 {cmd}')
     finally:
         analysis._plt = real_plt
     launches = {cmd: r[1] for cmd, r in runs.items()}
@@ -3740,6 +3901,7 @@ def phase_transformer() -> dict:
             out_k = model(clips)
         torch.cuda.synchronize()
         out['fwd'] = counts()[0]
+        hold_b6(out['fwd'], 'phase 32 forward')
         with torch.inference_mode(), boundary_pool.force_plain():
             out_p = model(clips)
         assert out['fwd'] == POOLS_PER_FORWARD, out['fwd']
@@ -3804,7 +3966,8 @@ def phase_export(state_dict, root) -> dict:
             w, FRAMES, CROP, 3, True, cuda))
         export_s = time.perf_counter() - t0
         ops = export.custom_op_counts(program)
-        want = {export.POOL_OP: POOLS_PER_FORWARD}
+        want = {export.POOL_OP: POOLS_PER_FORWARD,
+                'opental.max_pool3d_same': 13}
         if stem:
             want['opental.stem_pack96_v2'] = 1
         assert ops == want, (label, ops)
@@ -3831,6 +3994,7 @@ def phase_export(state_dict, root) -> dict:
         torch.cuda.synchronize()
         c = counts()
         assert (c[0], c[3]) == (POOLS_PER_FORWARD, int(stem)), (label, c)
+        hold_b6(c[0], f'phase 33 {label}')
         out['fwd'] += c[0]
         out['v2'] += c[3]
         if dtype == torch.float32:
@@ -3926,6 +4090,7 @@ def phase_streaming(state_dict, video) -> dict:
         reset_counts()
         got, wall, resident, ran = stream(pipe, video, batch, seed=34)
         out['fwd'] += counts()[0]
+        hold_b6(counts()[0], 'phase 34 f32')
     assert ran == n_windows, (ran, n_windows)
     assert out['fwd'] == POOLS_PER_FORWARD * forwards, out['fwd']
     assert resident <= FRAMES, resident
@@ -3942,6 +4107,7 @@ def phase_streaming(state_dict, video) -> dict:
         reset_counts()
         props, wall, _, _ = stream(pipe, video, batch, seed=35 + rep)
         out['fwd'] += counts()[0]
+        hold_b6(counts()[0], f'phase 34 bf16 {rep}')
         walls.append(wall)
         assert props
     out['windows_s'] = [n_windows / w for w in walls]
@@ -3982,6 +4148,7 @@ def phase_profiling(root, lengths) -> dict:
         torch.cuda.synchronize()
     fwd = counts()[0]
     assert fwd == 2 * POOLS_PER_FORWARD * forwards_of(lengths), fwd
+    hold_b6(fwd, 'phase 35 run_test')
     check_detection_json(path, lengths)
     pipe, _, _ = build_pipeline(cfg)
     clips, valid = u8_windows(8, 35)
@@ -3992,6 +4159,7 @@ def phase_profiling(root, lengths) -> dict:
         with timer.phase('forward', sync=clips):
             pipe.forward_decode(ingest_windows(clips, valid))
     fwd += counts()[0]
+    hold_b6(counts()[0], 'phase 35 forward')
     trace_path = os.path.join(logdir, profiling.TRACE_FILE)
     size = os.path.getsize(trace_path)
     device_ms_total = sum(
@@ -4138,6 +4306,7 @@ def phase_mesh_one(cfg, root) -> dict:
         reset_counts()
         path = run_test(load_config(cfg_path), mesh=mesh)
         out['fwd'] += counts()[0]
+        hold_b6(counts()[0], 'phase 36 run_test')
         with open(path) as f:
             results = json.load(f)['results']
         n_props = sum(len(v) for v in results.values())
@@ -4285,6 +4454,9 @@ def phase_mesh_ranks(cfg, root, dirs, videos) -> dict:
                     x, want[False]['buffers'][k], rtol=1e-4, atol=1e-5,
                     msg=lambda m: f'rank {r} {k}: {m}')
         out['fwd'] += sum(res[j]['launches'] for j in (3, 4, 5, 7, 8))
+        for j in (3, 4, 5, 7, 8):
+            hold_b6(res[j]['launches'], f'rank {r} job {j}',
+                    res[j]['pool3d_launches'])
     worst = {}
     for j, mode in ((3, 'packed'), (4, 'shared'), (5, 'fused')):
         worst[mode] = assert_same_json(paths[mode], got[0][j]['path'],
@@ -4366,8 +4538,7 @@ def main() -> int:
     log(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
         f'CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}')
     t0 = time.perf_counter()
-    _build.build_all([boundary_pool_cuda.NAME, stem_pack_cuda.NAME,
-                      soft_nms_cuda.NAME])
+    _build.build_all()
     log(f'kernels built in {time.perf_counter() - t0:.2f} s '
         f'(nvcc {_build.BUILD_SECONDS})')
     for name, text in _build.BUILD_LOG.items():
@@ -4382,6 +4553,7 @@ def main() -> int:
     seeded = factory.init_weights(factory.build_model(
         cfg, frame_num=FRAMES, crop_size=CROP, dtype=torch.float32), seed=0)
     state_dict = seeded.state_dict()
+    pool3d = phase_max_pool3d(cfg, state_dict)
     clips = random_clips(32, 0)
     calls = capture_pool_inputs(build_model(state_dict, torch.bfloat16,
                                             'cuda'), clips)
@@ -4556,7 +4728,13 @@ def main() -> int:
         'launches': sum(B5_MAIN),
         'max_rel_err': soft['max_rel_err'], 'ms': soft['ms'],
         'plain_ms': soft['plain_ms'], 'bound_ms': soft['bound_ms'],
-        'bound_by': 'latency', 'library_ms': None}]}), flush=True)
+        'bound_by': 'latency', 'library_ms': None}, {
+        'name': 'max_pool3d_same', 'route': 'cuda',
+        'source': 'opental_torch/csrc/max_pool3d.cu', 'replaces': None,
+        'launches': sum(B6_MAIN), 'max_abs_err': pool3d['err'],
+        'ms': pool3d['w128']['ms'], 'plain_ms': pool3d['w128']['plain_ms'],
+        'bound_ms': pool3d['w128']['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': pool3d['w128']['library_ms']}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

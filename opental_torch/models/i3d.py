@@ -17,7 +17,7 @@ forward is the span `model.backbone.<endpoint>` (`utils/profiling`).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -48,6 +48,9 @@ ENDPOINTS: Tuple[str, ...] = (
 )
 
 BLOCK_SPANS = {ep: 'model.backbone.' + ep for ep in ENDPOINTS}
+
+# (x shape, kernel, stride) of one max_pool_3d_same call
+PoolCall = Tuple[Tuple[int, ...], Tuple[int, int, int], Tuple[int, int, int]]
 
 MAXPOOL_SPECS = {
     'MaxPool3d_2a_3x3': ((1, 3, 3), (1, 2, 2)),
@@ -135,3 +138,28 @@ class InceptionI3d(nn.Module):
             if ep in self.KEEP:
                 out[ep] = x
         return out
+
+
+def pool_calls(windows: int, frames: int, crop: int,
+               in_channels: int = 3) -> List[PoolCall]:
+    """(x shape, kernel, stride) of each 3D max-pool call of one forward
+    of `windows` clips of `frames` x `crop` x `crop`, in call order (13:
+    four endpoint pools and one branch pool a module), from a forward on
+    the meta device."""
+    global max_pool_3d_same
+    calls: List[PoolCall] = []
+    real = max_pool_3d_same
+
+    def recording(x, kernel, stride):
+        calls.append((tuple(x.shape), tuple(kernel), tuple(stride)))
+        return real(x, kernel, stride)
+
+    model = InceptionI3d(in_channels).to('meta')
+    max_pool_3d_same = recording
+    try:
+        with torch.no_grad():
+            model(torch.empty(windows, in_channels, frames, crop, crop,
+                              device='meta'))
+    finally:
+        max_pool_3d_same = real
+    return calls

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from opental_torch.ops import stem_pack
+from opental_torch.ops import max_pool3d_cuda, stem_pack
 from opental_torch.parallel.mesh import all_reduce_sum
 
 GN_EPS = 1e-5   # torch GroupNorm default (reference nn.GroupNorm(32, C))
@@ -276,14 +276,27 @@ class Unit3D(nn.Module):
                         self.stride)
 
 
-def max_pool_3d_same(x: torch.Tensor, kernel: Sequence[int],
-                     stride: Sequence[int]) -> torch.Tensor:
+def max_pool_3d_same_plain(x: torch.Tensor, kernel: Sequence[int],
+                           stride: Sequence[int]) -> torch.Tensor:
     """Max-pool over (B, C, T, H, W) after a ZERO TF-SAME pad, as the
-    reference does (AFSD/common/layers.py:9-35)."""
+    reference does (AFSD/common/layers.py:9-35): the padded copy, then
+    PyTorch's pool, whose indices its backward takes."""
     kernel = _to_tuple(kernel, 3)
     stride = _to_tuple(stride, 3)
     x = F.pad(x, _f_pad(x.shape[2:], kernel, stride))
     return F.max_pool3d(x, kernel, stride)
+
+
+def max_pool_3d_same(x: torch.Tensor, kernel: Sequence[int],
+                     stride: Sequence[int]) -> torch.Tensor:
+    """`max_pool_3d_same_plain`'s function. A CUDA input whose gradient
+    autograd will not need (every inference forward) goes to B6, the
+    pad folded into one kernel launch (`ops/max_pool3d_cuda`); a CPU
+    input, or one that needs its gradient, to the plain version."""
+    if x.is_cuda and not (torch.is_grad_enabled() and x.requires_grad):
+        return max_pool3d_cuda.max_pool3d_same_op(
+            x, list(_to_tuple(kernel, 3)), list(_to_tuple(stride, 3)))
+    return max_pool_3d_same_plain(x, kernel, stride)
 
 
 class Unit1D(nn.Module):

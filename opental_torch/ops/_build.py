@@ -4,7 +4,8 @@ Each `csrc/*.cu` file has a plain C interface and compiles with `nvcc`
 into its own shared library, loaded with ctypes. A build happens at
 first use, into `opental_torch/_build/<source hash>/` (git-ignored), so
 an edited source rebuilds and an unchanged one loads what is there.
-`build_all` starts one `nvcc` per source at once and waits for all.
+`build_all` starts one `nvcc` per source at once (every `csrc/*.cu` by
+default) and waits for all.
 Nothing here runs when a module is imported.
 """
 
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
@@ -60,10 +61,16 @@ def _start(name: str):
     return proc, tmp, out, time.perf_counter()
 
 
-def build_all(names: Iterable[str]) -> List[str]:
-    """Compile every named source that is not built yet, all at once.
-    Returns the library paths; raises with nvcc's output on failure."""
-    names = list(names)
+def sources() -> List[str]:
+    """The name of every kernel source, `csrc/<name>.cu`."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith('.cu'))
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> List[str]:
+    """Compile every named source (default: all of `csrc/`) that is not
+    built yet, all at once. Returns the library paths; raises with nvcc's
+    output on failure."""
+    names = sources() if names is None else list(names)
     running = {n: _start(n) for n in names}
     for name, job in running.items():
         if job is None:

@@ -12,7 +12,8 @@ The jobs are the entry points a user calls on a mesh:
   EDL state and the pool kernels' launches;
 - 'time_train': the same step timed (steps per rank, ms, peak memory);
 - 'infer': an `InferencePipeline(mesh=...)` method on in-memory videos;
-- 'run_test': `tools.test.run_test(cfg, mesh=...)`;
+- 'run_test': `tools.test.run_test(cfg, mesh=...)`; these two return
+  B1's launches and B6's (the I3D's 3D max pool) besides their results;
 - 'train_cli': `tools.train.main(argv)` (the CLI with --use_mesh takes
   the group the worker joined);
 - 'backends': TF32 off and cuDNN deterministic (`exact`), or PyTorch's
@@ -63,9 +64,12 @@ def rank_backend(device: str, world: int) -> str:
     return 'nccl'
 
 
-def _launches() -> Tuple[int, int]:
-    from opental_torch.ops import boundary_pool_cuda
-    return boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES
+def _launches() -> Tuple[int, int, int]:
+    """B1's forward and backward launches and B6's (the I3D's 3D max
+    pool) so far in this process."""
+    from opental_torch.ops import boundary_pool_cuda, max_pool3d_cuda
+    return (boundary_pool_cuda.LAUNCHES, boundary_pool_cuda.BWD_LAUNCHES,
+            max_pool3d_cuda.LAUNCHES)
 
 
 def _sync(mesh: Mesh) -> None:
@@ -190,8 +194,10 @@ def _job_infer(mesh: Mesh, spec: Dict[str, Any]) -> Dict[str, Any]:
                                         **spec['kwargs'])
                    for v in spec['videos']}
     _sync(mesh)
+    after = _launches()
     return {'results': results, 'seconds': time.perf_counter() - t0,
-            'launches': _launches()[0] - before[0]}
+            'launches': after[0] - before[0],
+            'pool3d_launches': after[2] - before[2]}
 
 
 def _job_run_test(mesh: Mesh, spec: Dict[str, Any]) -> Dict[str, Any]:
@@ -204,8 +210,10 @@ def _job_run_test(mesh: Mesh, spec: Dict[str, Any]) -> Dict[str, Any]:
     t0 = time.perf_counter()
     path = run_test(cfg, mesh=mesh)
     _sync(mesh)
+    after = _launches()
     return {'path': path, 'seconds': time.perf_counter() - t0,
-            'launches': _launches()[0] - before[0]}
+            'launches': after[0] - before[0],
+            'pool3d_launches': after[2] - before[2]}
 
 
 def _job_train_cli(mesh: Mesh, spec: Dict[str, Any]) -> Dict[str, Any]:
@@ -238,10 +246,8 @@ def _rank_main(rank: int, world: int, init_method: str, device: str,
     their results to `out_dir/rank<r>.pt`, leave the group."""
     torch.set_num_threads(1)
     if device != 'cpu':
-        from opental_torch.ops import _build, boundary_pool_cuda, \
-            soft_nms_cuda, stem_pack_cuda
-        _build.build_all([boundary_pool_cuda.NAME, stem_pack_cuda.NAME,
-                          soft_nms_cuda.NAME])
+        from opental_torch.ops import _build
+        _build.build_all()
     mesh = make_mesh(world, rank, local_rank=rank,
                      init_method=init_method,
                      backend=rank_backend(device, world),

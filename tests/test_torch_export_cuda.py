@@ -22,7 +22,7 @@ from opental_torch.infer.pipeline import InferencePipeline, ingest_windows
 from opental_torch.losses.edl import EDLState
 from opental_torch.models.pyramid import level_sizes
 from opental_torch.ops import (boundary_pool, boundary_pool_cuda,
-                               stem_pack_cuda)
+                               max_pool3d_cuda, stem_pack_cuda)
 from opental_torch.tools import export
 from opental_torch.train.step import compute_losses, device_ingest
 
@@ -61,6 +61,10 @@ def test_opcheck_every_op():
     xp = torch.randn(1, 3, 20, 18, 18, device='cuda').permute(0, 2, 3, 4, 1)
     torch.library.opcheck(stem_pack_cuda.stem_pack96_op, (xp, 4))
     torch.library.opcheck(stem_pack_cuda.stem_pack96_v2_op, (xp, 4, 1))
+    v = torch.randn(2, 3, 7, 9, 10, device='cuda', dtype=torch.bfloat16)
+    for kernel, stride in max_pool3d_cuda.SPECS:
+        torch.library.opcheck(max_pool3d_cuda.max_pool3d_same_op,
+                              (v, list(kernel), list(stride)))
 
 
 @pytest.mark.cuda
@@ -100,7 +104,7 @@ def test_exported_program_holds_the_ops(tmp_path, stem_pallas):
     inputs = export.example_inputs(4, FRAMES, CROP, 3, True,
                                    torch.device('cuda'))
     program = export.export_program(module, inputs)
-    want = {export.POOL_OP: 2}
+    want = {export.POOL_OP: 2, 'opental.max_pool3d_same': 13}
     if stem_pallas:
         want['opental.stem_pack96_v2'] = 1
     assert export.custom_op_counts(program) == want
